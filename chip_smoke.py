@@ -1,21 +1,27 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--rows 2000000]
+    python3 chip_smoke.py [--rows 6000000]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi); fails without CUDA/sm_90;
   2. build the CUDA kernels from src/repro_torch/csrc into build/;
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (1024-row morsels and 8192-row stripes, SSB's
-     dictionaries, few to thousands of groups) and at a shape of millions
-     of rows, and time the
+     dictionaries and runtime bloom filters, few to thousands of groups,
+     four shuffle lanes) and at a shape of millions of rows, and time the
      kernel, the plain version, one PyTorch library call computing the same
-     function (a yardstick only; the port never calls it) and the bound;
-  4. load SSB (lineorder at 2,000,000 rows by default) and run the 13
-     SSB queries plus KERNEL_QUERIES through repro_torch.api under
+     function where there is one (a yardstick only; the port never calls
+     it) and the bound; hash_partition is also held against the numpy host
+     path and bloom_probe against BloomFilter.might_contain, bit-exact;
+  4. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
+     13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
-     warehouse, with the slice configuration; the row sets must agree and
-     every path kernel's launch counter must have risen;
+     warehouse, under the default SQL configuration (semijoin reduction on,
+     four shuffle lanes, no result cache); the row sets must agree and all
+     six path kernels' launch counters must have risen.  Then the first
+     slice's configuration (no semijoin reduction, one lane) runs as an
+     earlier path over EARLIER_QUERIES on the same warehouse, and its four
+     kernels' counters must have risen;
   5. print the ``kernels`` JSON line, the card line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -38,24 +44,36 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-SLICE = {"semijoin_reduction": False, "result_cache": False,
-         "shuffle.partitions": 1}
+# the default SQL configuration, with the lane count pinned ("auto" follows
+# the host's core count) and the result cache off so every query runs
+CONFIG = {"result_cache": False, "shuffle.partitions": 4}
+# the first slice's configuration, kept as an earlier path at less depth
+EARLIER = {"semijoin_reduction": False, "result_cache": False,
+           "shuffle.partitions": 1}
+# k.int_agg alone reaches all four of that path's kernels
+EARLIER_QUERIES = ("k.int_agg",)
 LINEORDER_COLS = ("lo_orderkey", "lo_custkey", "lo_partkey", "lo_suppkey",
                   "lo_orderdate", "lo_quantity", "lo_extendedprice",
                   "lo_discount", "lo_revenue", "lo_supplycost")
 PATH_KERNELS = ("filter_eval", "key_lookup", "hash_group",
-                "hash_group_minmax")
+                "hash_group_minmax", "hash_partition", "bloom_probe")
+EARLIER_KERNELS = PATH_KERNELS[:4]
 REPLACES = {
     "filter_eval": "src/repro/kernels/filter_eval/filter_eval.py:45",
     "key_lookup": "src/repro/kernels/key_lookup/key_lookup.py:42",
     "hash_group": "src/repro/kernels/hash_group/hash_group.py:94",
     "hash_group_minmax": "src/repro/kernels/hash_group/hash_group.py:59",
+    "hash_partition":
+        "src/repro/kernels/hash_partition/hash_partition.py:56",
+    "bloom_probe": "src/repro/kernels/bloom/bloom.py:38",
 }
 SOURCES = {
     "filter_eval": "src/repro_torch/csrc/filter_eval.cu",
     "key_lookup": "src/repro_torch/csrc/key_lookup.cu",
     "hash_group": "src/repro_torch/csrc/hash_group.cu",
     "hash_group_minmax": "src/repro_torch/csrc/hash_group.cu",
+    "hash_partition": "src/repro_torch/csrc/hash_partition.cu",
+    "bloom_probe": "src/repro_torch/csrc/bloom_probe.cu",
 }
 
 
@@ -110,6 +128,13 @@ def host_round_trips() -> dict:
                        rng.integers(0, 2556, n).astype(np.float32)),
         "hash_group": (codes, vals, 7),
         "hash_group_minmax": (codes, vals, 7),
+        # one numeric shuffle key over four lanes, as SSB's aggregates have
+        "hash_partition": ((rng.integers(0, 2556, n).astype(np.float32),),
+                           4),
+        # an 8192-row stripe against a 512-bit runtime filter, k = 6
+        "bloom_probe": (rng.integers(0, 2**32, 8192, dtype=np.uint32),
+                        rng.integers(0, 2**32, 8192, dtype=np.uint32),
+                        rng.integers(0, 2**32, 16, dtype=np.uint32), 6, 512),
     }
     out = {}
     for k, args in calls.items():
@@ -246,7 +271,89 @@ def check_kernels(dev, rng) -> dict:
                    lambda: (lo.scatter_reduce(0, kcodes, kvals, "amin"),
                             hi.scatter_reduce(0, kcodes, kvals, "amax")),
                    8 * n + 8 * g, 2 * n, main)
+
+    check_hash_partition(t, rng, err, record)
+    check_bloom_probe(t, rng, err, record)
     return {"err": err, "timed": timed}
+
+
+def _with_specials(col, rng):
+    """Put -0.0, +0.0, NaN and -NaN (NULL keys) at random rows."""
+    n = len(col)
+    for v in (-0.0, 0.0, np.float32(np.nan), -np.float32(np.nan)):
+        col[rng.integers(0, n, max(1, n // 64))] = v
+    return col
+
+
+def check_hash_partition(t, rng, err, record):
+    """Bit-exact against the plain version and the numpy host path."""
+    from repro_torch.core.runtime.shuffle import partition_codes
+    from repro_torch.core.runtime.vector import VectorBatch
+    from repro_torch.kernels.hash_partition.ops import hash_partition_cuda
+    from repro_torch.kernels.hash_partition.ref import hash_partition_ref
+
+    for n in (1024, 8192, 4_000_000):
+        for k in (1, 2, 3, 8):
+            keys = [_with_specials(
+                rng.integers(-5000, 5000, n).astype(np.float32) if i % 2 == 0
+                else rng.normal(size=n).astype(np.float32), rng)
+                for i in range(k)]
+            batch = VectorBatch({f"k{i}": c for i, c in enumerate(keys)})
+            cols = [t(c) for c in keys]
+            for p in (4, 8):
+                got = hash_partition_cuda(cols, p)
+                exp = hash_partition_ref(cols, p)
+                host = partition_codes(batch, list(batch.cols), p, "auto")
+                torch.cuda.synchronize()
+                bad = int((got != exp).sum())
+                bad_host = int((got.cpu().numpy() != host).sum())
+                assert bad == 0 and bad_host == 0, \
+                    (f"hash_partition n={n} K={k} P={p}: {bad} rows differ "
+                     f"from the plain version, {bad_host} from the host path")
+            main = (n, k) == (1024, 1)
+            if main or (n, k) == (4_000_000, 3):
+                record("hash_partition", f"n={n} K={k} P=4",
+                       200 if n <= 8192 else 20,
+                       lambda: hash_partition_cuda(cols, 4),
+                       lambda: hash_partition_ref(cols, 4), None,
+                       4 * k * n + 4 * n, n * (3 * k + 8), main)
+
+
+def check_bloom_probe(t, rng, err, record):
+    """Bit-exact against the plain version and BloomFilter.might_contain;
+    2**20 bits takes the kernel's device-memory branch."""
+    from repro_torch.core.bloomfilter import BloomFilter, hash_values
+    from repro_torch.kernels.bloom.ops import bloom_probe_cuda
+    from repro_torch.kernels.bloom.ref import bloom_probe_ref
+
+    cases = [(64, 6, 5, 8192), (512, 6, 60, 8192), (32768, 6, 4000, 8192),
+             (1 << 20, 6, 100_000, 8192), (32768, 6, 4000, 4_000_000)]
+    cases += [(4096, k, 400, 8192) for k in (1, 2, 3, 4, 5, 7, 8)]
+    for num_bits, k, members, n in cases:
+        space = 4 * members + 1000
+        bf = BloomFilter(num_bits, k)
+        bf.add(rng.integers(0, space, members))
+        queries = rng.integers(0, space, n)
+        h = hash_values(queries)
+        h1 = t((h & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+        h2 = t((h >> np.uint64(32)).astype(np.uint32))
+        bits = t(bf.bits.view(np.uint32))
+        got = bloom_probe_cuda(h1, h2, bits, k, num_bits)
+        exp = bloom_probe_ref(h1, h2, bits, k, num_bits)
+        host = bf.might_contain(queries)
+        torch.cuda.synchronize()
+        bad = int((got != exp).sum())
+        bad_host = int((got.cpu().numpy() != host).sum())
+        assert bad == 0 and bad_host == 0, \
+            (f"bloom_probe bits={num_bits} k={k} n={n}: {bad} rows differ "
+             f"from the plain version, {bad_host} from might_contain")
+        main = (num_bits, n) == (512, 8192)
+        if main or n > 8192:
+            record("bloom_probe", f"n={n} bits={num_bits} k={k}",
+                   200 if n <= 8192 else 20,
+                   lambda: bloom_probe_cuda(h1, h2, bits, k, num_bits),
+                   lambda: bloom_probe_ref(h1, h2, bits, k, num_bits), None,
+                   9 * n + num_bits // 8, 5 * k * n, main)
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +383,75 @@ def same_rows(got, exp) -> bool:
     return True
 
 
+def llap_line(wh, since: dict) -> str:
+    c = wh.llap.counters
+    return (f"LLAP cache hits {c['cache_hits'] - since.get('cache_hits', 0)} "
+            f"misses {c['cache_misses'] - since.get('cache_misses', 0)}")
+
+
+def read_every_stripe(wh, table: str) -> int:
+    """Read every stripe column of ``table``'s files through the port's
+    stripe reader; returns the number of columns read."""
+    from repro_torch.core.storage import StripeFileReader
+
+    location = wh.hms.get_table(table).location
+    count = 0
+    for d, _, files in os.walk(location):
+        for f in sorted(files):
+            if not f.endswith(".tahoe"):
+                continue
+            with StripeFileReader(os.path.join(d, f)) as reader:
+                meta = reader.read_meta()
+                for si in range(len(meta.stripes)):
+                    for col in meta.columns:
+                        reader.read_column(si, col)
+                        count += 1
+    return count
+
+
+def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
+             title: str) -> dict:
+    """Each query under cuda, then under auto (same scan-cache state), on
+    one warehouse; launch counts go to 0 just before and are read just
+    after.  Returns the counts."""
+    from repro_torch.kernels import registry
+
+    print(title, flush=True)
+    print(f"{'query':10s} {'rows':>6s} {'cuda ms':>10s} {'auto ms':>10s}"
+          "  cuda launches (" + " ".join(PATH_KERNELS) + ")", flush=True)
+    llap0 = dict(wh.llap.counters)
+    total_c = total_a = 0.0
+    with db.connect(warehouse=wh, engine="cuda", **cfg) as cuda, \
+            db.connect(warehouse=wh, engine="auto", **cfg) as auto:
+        registry.reset_launch_counts()
+        for name, sql in queries.items():
+            before = registry.launch_counts()
+            t0 = time.perf_counter()
+            got = rows_of(cuda.execute(sql))
+            mc = (time.perf_counter() - t0) * 1e3
+            after = registry.launch_counts()
+            t0 = time.perf_counter()
+            exp = rows_of(auto.execute(sql))
+            ma = (time.perf_counter() - t0) * 1e3
+            assert same_rows(got, exp), f"{name}: cuda rows != auto rows"
+            total_c, total_a = total_c + mc, total_a + ma
+            counts = " ".join(str(after.get(k, 0) - before.get(k, 0))
+                              for k in PATH_KERNELS)
+            print(f"{name:10s} {len(got):6d} {mc:10.1f} {ma:10.1f}  "
+                  f"{counts}", flush=True)
+        torch.cuda.synchronize()
+        launches = registry.launch_counts()
+    print(f"{'total':10s} {'':6s} {total_c:10.1f} {total_a:10.1f}; "
+          f"{llap_line(wh, llap0)}", flush=True)
+    print(f"launches: {launches}", flush=True)
+    for k in kernels:
+        assert launches.get(k, 0) > 0, f"{k} never launched on the path"
+    return launches
+
+
 def main_path(rows: int, work_dir: str) -> dict:
     import repro_torch.api as db
     from repro_torch.core.session import Warehouse
-    from repro_torch.kernels import registry
     from repro_torch.workloads.ssb import (KERNEL_QUERIES, SSB_QUERIES,
                                            load_ssb)
 
@@ -292,43 +464,35 @@ def main_path(rows: int, work_dir: str) -> dict:
         load_ssb(wh, scale_rows=rows)
         print(f"load_ssb rows={rows}: {time.perf_counter() - t0:.1f} s",
               flush=True)
-        # warm the scan caches over every lineorder column, so the first
-        # query of the first engine does not pay for a cold read alone
+        # every stripe column of lineorder read once, storage alone: one
+        # zip-directory parse per file
         t0 = time.perf_counter()
-        with db.connect(warehouse=wh, engine="auto", **SLICE) as warm:
+        members = read_every_stripe(wh, "lineorder")
+        print(f"stripe reads of lineorder: {members} columns in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        # one cold read of every lineorder column through LLAP and the
+        # executor (lineorder at SF1 outgrows LLAP's 256 MB cache, so later
+        # scans read from disk again)
+        llap0 = dict(wh.llap.counters)
+        t0 = time.perf_counter()
+        with db.connect(warehouse=wh, engine="auto", **CONFIG) as warm:
             warm.execute("SELECT " + ", ".join(
                 f"SUM({c})" for c in LINEORDER_COLS) + " FROM lineorder"
             ).fetchall()
         print(f"cold scan of every lineorder column: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        cfg = {**SLICE, "exchange.spill_dir": spill}
-        print(f"{'query':10s} {'rows':>6s} {'cuda ms':>10s} {'auto ms':>10s}"
-              "  cuda launches (filter_eval key_lookup hash_group "
-              "hash_group_minmax)", flush=True)
-        with db.connect(warehouse=wh, engine="cuda", **cfg) as cuda, \
-                db.connect(warehouse=wh, engine="auto", **cfg) as auto:
-            registry.reset_launch_counts()
-            for name, sql in queries.items():
-                # each query runs under cuda, then under auto, so both see
-                # the same scan-cache state
-                before = registry.launch_counts()
-                t0 = time.perf_counter()
-                got = rows_of(cuda.execute(sql))
-                mc = (time.perf_counter() - t0) * 1e3
-                after = registry.launch_counts()
-                t0 = time.perf_counter()
-                exp = rows_of(auto.execute(sql))
-                ma = (time.perf_counter() - t0) * 1e3
-                assert same_rows(got, exp), f"{name}: cuda rows != auto rows"
-                counts = " ".join(str(after.get(k, 0) - before.get(k, 0))
-                                  for k in PATH_KERNELS)
-                print(f"{name:10s} {len(got):6d} {mc:10.1f} {ma:10.1f}  "
-                      f"{counts}", flush=True)
-            torch.cuda.synchronize()
-            launches = registry.launch_counts()
-        print(f"launches on the main path: {launches}", flush=True)
-        for k in PATH_KERNELS:
-            assert launches.get(k, 0) > 0, f"{k} never launched on the path"
+              f"{time.perf_counter() - t0:.1f} s; {llap_line(wh, llap0)}",
+              flush=True)
+        launches = run_path(
+            db, wh, {**CONFIG, "exchange.spill_dir": spill}, queries,
+            PATH_KERNELS, f"main path: default SQL configuration {CONFIG}, "
+            f"{len(queries)} queries, lineorder {rows} rows")
+        run_path(
+            db, wh, {**EARLIER, "exchange.spill_dir": spill},
+            {name: queries[name] for name in EARLIER_QUERIES},
+            EARLIER_KERNELS, f"earlier path (first slice): {EARLIER}, "
+            f"depth {len(EARLIER_QUERIES)} of {len(queries)} queries "
+            f"{list(EARLIER_QUERIES)}, "
+            f"lineorder {rows} rows")
         return launches
     finally:
         wh.close()
@@ -337,13 +501,8 @@ def main_path(rows: int, work_dir: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # SSB SF1 has 6,000,000 lineorder rows; the host stripe reader carried
-    # over from the reference re-reads a file's whole zip directory for
-    # every stripe column it reads (quadratic in stripes per file), which
-    # puts SF1 past the run's time limit: PERF.md records the cut
-    ap.add_argument("--rows", type=int, default=2_000_000,
-                    help="lineorder rows (default 2,000,000; SSB SF1 has "
-                         "6,000,000)")
+    ap.add_argument("--rows", type=int, default=6_000_000,
+                    help="lineorder rows (default 6,000,000, SSB SF1)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -377,7 +536,7 @@ def main() -> int:
     print("kernel checks against the plain versions on the card:",
           flush=True)
     checked = check_kernels(dev, rng)
-    print("executor calls (numpy in, numpy out) at n=1024:", flush=True)
+    print("executor calls (numpy in, numpy out) at the path's shapes:", flush=True)
     round_trip = host_round_trips()
 
     work = os.path.join(HERE, "build", "chip_smoke_wh")

@@ -34,8 +34,8 @@ from .stats import TableStats, compute_column_stats
 from .storage import (
     FileMeta,
     SargPredicate,
+    StripeFileReader,
     read_file_meta,
-    read_stripe_column,
     stripe_may_match,
     write_stripe_file,
 )
@@ -65,13 +65,9 @@ class PlainIO:
     ) -> Iterator[VectorBatch]:
         """Stream one decoded ``VectorBatch`` per surviving stripe, so scans
         pipeline morsels instead of materializing whole files."""
-        meta = self.read_meta(path)
-        cols = list(columns) if columns is not None else meta.columns
-        for si, smeta in enumerate(meta.stripes):
-            if sarg_preds and not stripe_may_match(smeta, sarg_preds):
-                continue  # row-group skip via min/max + file blooms (§5.1)
-            stripe_cols = {c: read_stripe_column(path, si, c) for c in cols}
-            yield _bloom_masked(stripe_cols, cols, runtime_blooms)
+        with StripeFileReader(path) as reader:  # one directory parse
+            yield from _stripe_chunks(reader, reader.read_meta(), columns,
+                                      sarg_preds, runtime_blooms)
 
     def read_file(
         self,
@@ -80,14 +76,30 @@ class PlainIO:
         sarg_preds: Sequence[SargPredicate] = (),
         runtime_blooms: Optional[Dict[str, BloomFilter]] = None,
     ) -> Tuple[FileMeta, VectorBatch]:
-        meta = self.read_meta(path)
-        cols = list(columns) if columns is not None else meta.columns
-        chunks = list(self.read_file_chunks(path, columns, sarg_preds,
-                                            runtime_blooms))
+        with StripeFileReader(path) as reader:
+            meta = reader.read_meta()
+            cols = list(columns) if columns is not None else meta.columns
+            chunks = list(_stripe_chunks(reader, meta, cols, sarg_preds,
+                                         runtime_blooms))
         return meta, _concat_file_chunks(chunks, cols, meta)
 
     def read_meta(self, path: str) -> FileMeta:
         return read_file_meta(path)
+
+
+def _stripe_chunks(
+    reader: StripeFileReader,
+    meta: FileMeta,
+    columns: Optional[Sequence[str]],
+    sarg_preds: Sequence[SargPredicate],
+    runtime_blooms: Optional[Dict[str, BloomFilter]],
+) -> Iterator[VectorBatch]:
+    cols = list(columns) if columns is not None else meta.columns
+    for si, smeta in enumerate(meta.stripes):
+        if sarg_preds and not stripe_may_match(smeta, sarg_preds):
+            continue  # row-group skip via min/max + file blooms (§5.1)
+        stripe_cols = {c: reader.read_column(si, c) for c in cols}
+        yield _bloom_masked(stripe_cols, cols, runtime_blooms)
 
 
 def _bloom_masked(

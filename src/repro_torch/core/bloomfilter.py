@@ -1,8 +1,9 @@
 """Bloom filters for index semijoins and ORC-style stripe skipping (paper §4.6).
 
-The numpy implementation here is the *reference* / host-side path; the
-device probe (``bloom_probe``) is not ported to CUDA yet (ROADMAP B6), so
-under a kernel engine a runtime bloom filter raises instead of probing.
+The numpy implementation here is the *reference* / host-side path; under a
+kernel engine the executor probes runtime filters through the ``bloom_probe``
+kernel (``repro_torch.kernels.bloom``), which answers exactly as
+:meth:`BloomFilter.might_contain` does.
 """
 from __future__ import annotations
 

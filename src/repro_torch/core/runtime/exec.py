@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...kernels.bloom.ops import probe_bloom_filter
 from ...kernels.registry import engine_device, host_call, resolve
 from ..acid import AcidTable
 from ..bloomfilter import BloomFilter
@@ -365,19 +366,19 @@ _FOLD_FN = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
 
 class _KernelBloomProbe:
     """Adapter routing runtime-filter bloom probes through the kernel
-    registry (``bloom_probe`` under ``engine: cuda|ref``) while presenting
-    the ``might_contain`` surface the scan I/O layer expects.
+    registry (``bloom_probe`` under ``engine: cuda|ref``, on the query's
+    device) while presenting the ``might_contain`` surface the scan I/O
+    layer expects; every probe is one traced kernel dispatch."""
 
-    ``bloom_probe`` is not ported yet (ROADMAP B6): resolving it raises
-    here, when the scan is set up, so a kernel engine needs
-    ``semijoin_reduction: False`` until it lands."""
-
-    def __init__(self, bf: BloomFilter, engine: str):
+    def __init__(self, bf: BloomFilter, ctx: ExecContext):
         self._bf = bf
-        self._probe = resolve("bloom_probe", engine)
+        self._ctx = ctx
 
     def might_contain(self, values: np.ndarray) -> np.ndarray:
-        return np.asarray(self._probe(self._bf, values))
+        ctx = self._ctx
+        if ctx.trace is not None:
+            ctx.trace.kernel_dispatch("bloom_probe", ctx.engine)
+        return probe_bloom_filter(self._bf, values, ctx.engine, ctx.device)
 
 
 class _BuildTable:
@@ -541,7 +542,7 @@ class Executor:
                 bloom = res["bloom"]
                 if self.ctx.engine != "auto":
                     # route stripe-level probes through the kernel registry
-                    bloom = _KernelBloomProbe(bloom, self.ctx.engine)
+                    bloom = _KernelBloomProbe(bloom, self.ctx)
                 runtime_blooms[rf.target_column] = bloom
                 sargs.append(SargPredicate(rf.target_column, ">=", res["min"]))
                 sargs.append(SargPredicate(rf.target_column, "<=", res["max"]))

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,8 +33,8 @@ from ..bloomfilter import BloomFilter
 from ..storage import (
     FileMeta,
     SargPredicate,
+    StripeFileReader,
     read_file_meta,
-    read_stripe_column,
     stripe_may_match,
 )
 from .lrfu import LRFUPolicy
@@ -81,28 +81,34 @@ class LlapDaemon:
         self.io_pool.shutdown(wait=False)
 
     # ------------------------------------------------------------- metadata
-    def file_meta(self, path: str) -> FileMeta:
+    def file_meta(self, path: str,
+                  reader: Optional[StripeFileReader] = None) -> FileMeta:
+        """The file's footer, from the cache when ``path``'s mtime still
+        matches; a miss reads it through ``reader`` when the scan has one
+        open, so the scan parses the file's zip directory once."""
         mtime = os.path.getmtime(path)
         with self._lock:
             hit = self._meta.get(path)
             if hit is not None and hit[0] == mtime:
                 self.counters["meta_hits"] += 1
                 return hit[1]
-        meta = read_file_meta(path)
+        meta = (reader.read_meta() if reader is not None
+                else read_file_meta(path))
         with self._lock:
             self._meta[path] = (mtime, meta)
             self.counters["meta_misses"] += 1
         return meta
 
     # ------------------------------------------------------------- chunks
-    def _get_chunk(self, path: str, meta: FileMeta, stripe: int, col: str) -> np.ndarray:
+    def _get_chunk(self, reader: StripeFileReader, meta: FileMeta,
+                   stripe: int, col: str) -> np.ndarray:
         key = (meta.file_id, stripe, col)
         with self._lock:
             if key in self._chunks:
                 self.counters["cache_hits"] += 1
                 self._policy.on_access(key)
                 return self._chunks[key]
-        arr = read_stripe_column(path, stripe, col)
+        arr = reader.read_column(stripe, col)
         nbytes = arr.nbytes
         with self._lock:
             self.counters["cache_misses"] += 1
@@ -178,25 +184,40 @@ class LlapIO:
         instead of waiting for the whole file to decode."""
         from ..acid import _bloom_masked
 
-        # metadata first — in bulk, before any data I/O (paper §5.1)
-        meta = self.daemon.file_meta(path)
-        cols = list(columns) if columns is not None else meta.columns
+        # one reader per file and scan, shared by the I/O-pool loads: the
+        # zip directory is parsed at the first cache miss (footer or chunk),
+        # and a scan served wholly from the caches never opens the file
+        reader = StripeFileReader(path)
+        futures = []
+        try:
+            # metadata first — in bulk, before any data I/O (paper §5.1)
+            meta = self.daemon.file_meta(path, reader)
+            cols = list(columns) if columns is not None else meta.columns
 
-        wanted_stripes = []
-        for si, smeta in enumerate(meta.stripes):
-            if sarg_preds and not stripe_may_match(smeta, sarg_preds):
-                self.daemon.counters["stripes_skipped"] += 1
-                continue
-            wanted_stripes.append(si)
+            wanted_stripes = []
+            for si, smeta in enumerate(meta.stripes):
+                if sarg_preds and not stripe_may_match(smeta, sarg_preds):
+                    self.daemon.counters["stripes_skipped"] += 1
+                    continue
+                wanted_stripes.append(si)
 
-        def load(si: int) -> Dict[str, np.ndarray]:
-            return {c: self.daemon._get_chunk(path, meta, si, c) for c in cols}
+            def load(si: int) -> Dict[str, np.ndarray]:
+                return {c: self.daemon._get_chunk(reader, meta, si, c)
+                        for c in cols}
 
-        futures = [self.daemon.io_pool.submit(load, si) for si in wanted_stripes]
-        for fut in futures:
-            stripe_cols = fut.result()
-            self.daemon.counters["stripes_read"] += 1
-            yield _bloom_masked(stripe_cols, cols, runtime_blooms)
+            futures = [self.daemon.io_pool.submit(load, si)
+                       for si in wanted_stripes]
+            for fut in futures:
+                stripe_cols = fut.result()
+                self.daemon.counters["stripes_read"] += 1
+                yield _bloom_masked(stripe_cols, cols, runtime_blooms)
+        finally:
+            # an abandoned scan (LIMIT, cancel) drops its queued loads and
+            # waits out the running ones before the reader closes under them
+            for fut in futures:
+                fut.cancel()
+            wait(futures)
+            reader.close()
 
     def read_file(
         self,
@@ -205,10 +226,10 @@ class LlapIO:
         sarg_preds: Sequence[SargPredicate] = (),
         runtime_blooms: Optional[Dict[str, BloomFilter]] = None,
     ) -> Tuple[FileMeta, VectorBatch]:
-        meta = self.daemon.file_meta(path)
-        cols = list(columns) if columns is not None else meta.columns
         chunks = list(self.read_file_chunks(path, columns, sarg_preds,
                                             runtime_blooms))
+        meta = self.daemon.file_meta(path)  # cached by the scan above
+        cols = list(columns) if columns is not None else meta.columns
         if chunks:
             return meta, VectorBatch.concat(chunks)
         return meta, VectorBatch({

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ...kernels.registry import engine_device, host_call, resolve
 from ..optimizer import plan as P
 from ..sql import ast as A
 from .exchange import Exchange, ExchangeConfig
@@ -91,21 +92,20 @@ def partition_codes(batch: VectorBatch, keys: Sequence[str],
     """Bucket id in ``[0, num_partitions)`` per row of ``batch``.
 
     Under ``engine: cuda|ref`` all-numeric key sets dispatch through the
-    ``hash_partition`` kernel; the numpy path computes the identical hash,
-    so lanes agree even when one edge of a join is kernel-shaped and the
-    other is not.  The kernel is not ported yet (ROADMAP B5): its registry
-    lookup raises, so a kernel engine needs ``shuffle.partitions: 1``.
+    ``hash_partition`` kernel on the engine's device; the numpy path
+    computes the identical hash, so lanes agree even when one edge of a
+    join is kernel-shaped and the other is not.  The keys become float32 on
+    the host on both paths, so NaN (NULL) payloads agree too.
     """
     n = batch.num_rows
     if n == 0:
         return np.zeros(0, dtype=np.int64)
     cols = [batch.cols[k] for k in keys]
     if engine != "auto" and all(c.dtype.kind in "iufb" for c in cols):
-        from ...kernels.registry import resolve
-
-        fn = resolve("hash_partition", engine)
+        fn = host_call(resolve("hash_partition", engine),
+                       engine_device(engine))
         f32 = tuple(c.astype(np.float32) for c in cols)
-        return np.asarray(fn(f32, int(num_partitions))).astype(np.int64)
+        return fn(f32, int(num_partitions)).astype(np.int64)
     h = np.zeros(n, dtype=np.uint32)
     for c in cols:
         words = (_numeric_words(c) if c.dtype.kind in "iufb"

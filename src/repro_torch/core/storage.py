@@ -16,6 +16,7 @@ import hashlib
 import io
 import json
 import os
+import threading
 import zipfile
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -151,14 +152,63 @@ def write_stripe_file(
 
 def read_file_meta(path: str) -> FileMeta:
     """Footer-only read — this is what LLAP's bulk metadata cache loads."""
-    with zipfile.ZipFile(path) as zf:
-        return FileMeta.from_json(zf.read(_META_KEY).decode())
+    with StripeFileReader(path) as reader:
+        return reader.read_meta()
 
 
-def read_stripe_column(path: str, stripe: int, column: str) -> np.ndarray:
-    with zipfile.ZipFile(path) as zf:
-        with zf.open(f"s{stripe}/{column}.npy") as f:
-            return np.load(io.BytesIO(f.read()), allow_pickle=False)
+class StripeFileReader:
+    """One stripe file open for reading: its zip directory is parsed once,
+    at the first read, and every later footer or column read of the scan
+    goes through that one parse.
+
+    A scan opens one reader per file and closes it when its scan of the file
+    ends.  ``zipfile.ZipFile`` serialises member reads on its shared file
+    handle, so the I/O-pool threads of one scan may read columns through one
+    reader at once (decompression runs outside that lock).  Files are
+    immutable; a file replaced during a scan (compaction) is still read as
+    the inode the scan opened."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._zf: Optional[zipfile.ZipFile] = None
+        self._closed = False
+        self._lock = threading.Lock()
+
+    def _zip(self) -> zipfile.ZipFile:
+        with self._lock:
+            if self._closed:
+                raise ValueError(f"stripe file reader closed: {self.path}")
+            if self._zf is None:
+                self._zf = zipfile.ZipFile(self.path)
+            return self._zf
+
+    def read_meta(self) -> FileMeta:
+        return FileMeta.from_json(self._zip().read(_META_KEY).decode())
+
+    def read_column(self, stripe: int, column: str) -> np.ndarray:
+        zf = self._zip()
+        # ZipFile counts its open members without a lock: opening and
+        # closing one is serialised here, the read and inflate are not
+        with self._lock:
+            f = zf.open(f"s{stripe}/{column}.npy")
+        try:
+            data = f.read()
+        finally:
+            with self._lock:
+                f.close()
+        return np.load(io.BytesIO(data), allow_pickle=False)
+
+    def close(self) -> None:
+        with self._lock:
+            zf, self._zf, self._closed = self._zf, None, True
+        if zf is not None:
+            zf.close()
+
+    def __enter__(self) -> "StripeFileReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 # --------------------------------------------------------------------------

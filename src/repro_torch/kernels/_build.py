@@ -43,6 +43,11 @@ _SIGNATURES = {
     "hash_group_launch": [_P, _P, _I64, _I64, _P, _P, _P],
     # codes, vals, n, g, mins, maxs, stream
     "hash_group_minmax_launch": [_P, _P, _I64, _I64, _P, _P, _P],
+    # cols (host array of k device pointers), k, n, partitions, out, stream
+    "hash_partition_launch": [_P, _I32, _I64, _I32, _P, _P],
+    # h1, h2, bits, words, num_hashes, mask, n, out, stream
+    "bloom_probe_launch": [_P, _P, _P, _I64, _I32, ctypes.c_uint32, _I64,
+                           _P, _P],
 }
 
 _LOCK = threading.Lock()

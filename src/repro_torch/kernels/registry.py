@@ -2,8 +2,8 @@
 
 Every ported kernel package registers its implementations here under a
 stable kernel name (``filter_eval``, ``key_lookup``, ``hash_group``,
-``hash_group_minmax``).  Callers resolve a backend by name + engine
-selector:
+``hash_group_minmax``, ``hash_partition``, ``bloom_probe``).  Callers
+resolve a backend by name + engine selector:
 
   * ``cuda``   — the hand-written CUDA kernel's wrapper (``pallas`` is an
                  accepted alias, so configs written for the JAX package keep
@@ -35,8 +35,6 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
 # kernels of the JAX package still to be ported -> their ROADMAP item
 _NOT_PORTED = {
-    "hash_partition": "B5",
-    "bloom_probe": "B6",
     "ssd_scan": "B7",
     "flash_attention": "B8",
 }
@@ -127,7 +125,7 @@ def resolve(kernel: str, engine: str = "auto") -> Callable:
         raise KeyError(
             f"kernel {kernel!r} is not ported to CUDA yet (ROADMAP "
             f"{_NOT_PORTED[kernel]}); run with engine='auto' or keep it off "
-            f"the path (see README: slice configuration)")
+            f"the path")
     impls = _REGISTRY.get(kernel)
     if impls is None:
         # kernel packages self-register on import; pull them in lazily so
@@ -182,5 +180,6 @@ def host_call(fn: Callable, device: torch.device) -> Callable:
 def _import_all() -> None:
     import importlib
 
-    for pkg in ("filter_eval", "hash_group", "key_lookup"):
+    for pkg in ("filter_eval", "hash_group", "key_lookup", "hash_partition",
+                "bloom"):
         importlib.import_module(f".{pkg}.ops", __package__)

@@ -5,7 +5,8 @@ Imports no JAX, so it runs on a GPU machine without it:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test skips without a GPU of compute capability >= 9.0.  Tolerances:
-filter_eval, key_lookup, counts, integer-valued sums and MIN/MAX are exact;
+filter_eval, key_lookup, hash_partition, bloom_probe, counts, integer-valued
+sums and MIN/MAX are exact;
 sums of random floats agree at atol 1e-3, because float atomics add in an
 order that changes from run to run.
 """
@@ -13,13 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bloomfilter import BloomFilter, hash_values
+from repro_torch.core.runtime.shuffle import partition_codes
+from repro_torch.core.runtime.vector import VectorBatch
 from repro_torch.kernels import registry
+from repro_torch.kernels.bloom.ops import bloom_probe_cuda, probe_bloom_filter
+from repro_torch.kernels.bloom.ref import bloom_probe_ref
 from repro_torch.kernels.filter_eval.ops import filter_eval_cuda
 from repro_torch.kernels.filter_eval.ref import filter_eval_ref
 from repro_torch.kernels.hash_group.ops import (hash_group_cuda,
                                                 hash_group_minmax_cuda)
 from repro_torch.kernels.hash_group.ref import (hash_group_minmax_ref,
                                                 hash_group_ref)
+from repro_torch.kernels.hash_partition.ops import hash_partition_cuda
+from repro_torch.kernels.hash_partition.ref import hash_partition_ref
 from repro_torch.kernels.key_lookup.ops import key_lookup_cuda
 from repro_torch.kernels.key_lookup.ref import key_lookup_ref
 
@@ -99,3 +107,65 @@ def test_cuda_filter_rejects_too_many_columns(cuda):
     cols = [_t(np.ones(4, np.float32), cuda) for _ in range(9)]
     with pytest.raises(ValueError, match="at most 8"):
         filter_eval_cuda(cols, (0,) * 9, (1.0,) * 9)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (1024, 1), (8192, 3), (5000, 8),
+                                 (3_000_000, 2)])
+@pytest.mark.parametrize("p", [1, 4, 7, 8])
+def test_cuda_hash_partition_bit_exact(cuda, n, k, p):
+    """Equal to the plain version and to the numpy host path, with -0.0
+    and NaN (NULL) keys among the rows."""
+    rng = np.random.default_rng(n + k)
+    keys = [rng.normal(size=n).astype(np.float32) * 100 for _ in range(k)]
+    for c in keys:
+        for v in (-0.0, 0.0, np.nan, -np.float32(np.nan)):
+            c[rng.integers(0, n, max(1, n // 32))] = v
+    got = hash_partition_cuda([_t(c, cuda) for c in keys], p)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), hash_partition_ref([_t(c) for c in keys], p))
+    batch = VectorBatch({f"k{i}": c for i, c in enumerate(keys)})
+    host = partition_codes(batch, list(batch.cols), p, engine="auto")
+    assert np.array_equal(_np(got).astype(np.int64), host)
+
+
+def test_cuda_hash_partition_rejects_bad_input(cuda):
+    x = _t(np.ones(4, np.float32), cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        hash_partition_cuda([x] * 9, 4)
+    with pytest.raises(ValueError, match="float32"):
+        hash_partition_cuda([_t(np.ones(4), cuda)], 4)
+
+
+@pytest.mark.parametrize("num_bits,k,n", [(64, 6, 8192), (512, 6, 8192),
+                                          (32768, 6, 8192), (1 << 20, 6, 8192),
+                                          (4096, 1, 1000), (4096, 8, 1000),
+                                          (32768, 6, 3_000_000)])
+def test_cuda_bloom_probe_exact(cuda, num_bits, k, n):
+    """Equal to the plain version and BloomFilter.might_contain; 2**20 bits
+    takes the device-memory branch, the rest stage the bitset."""
+    rng = np.random.default_rng(num_bits + k)
+    bf = BloomFilter(num_bits, k)
+    bf.add(rng.integers(0, 40_000, max(5, num_bits // 10)))
+    queries = rng.integers(0, 40_000, n)
+    h = hash_values(queries)
+    h1 = _t((h & np.uint64(0xFFFFFFFF)).astype(np.uint32), cuda)
+    h2 = _t((h >> np.uint64(32)).astype(np.uint32), cuda)
+    bits = _t(bf.bits.view(np.uint32), cuda)
+    got = bloom_probe_cuda(h1, h2, bits, k, num_bits)
+    assert torch.equal(got.cpu(), bloom_probe_ref(h1.cpu(), h2.cpu(),
+                                                  bits.cpu(), k, num_bits))
+    assert np.array_equal(_np(got), bf.might_contain(queries))
+    assert np.array_equal(
+        probe_bloom_filter(bf, queries, engine="cuda"),
+        bf.might_contain(queries))
+
+
+def test_cuda_new_kernels_count_launches(cuda):
+    before = registry.launch_counts()
+    bf = BloomFilter.for_expected(100)
+    probe_bloom_filter(bf, np.arange(50), engine="cuda")
+    partition_codes(VectorBatch({"a": np.arange(50)}), ["a"], 4,
+                    engine="cuda")
+    after = registry.launch_counts()
+    for name in ("bloom_probe", "hash_partition"):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name

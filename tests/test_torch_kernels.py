@@ -173,7 +173,7 @@ def test_hash_group_empty_input(g):
 def test_registry_engines_and_aliases():
     assert registry.VALID_ENGINES == ("auto", "cuda", "pallas", "ref")
     for name in ("filter_eval", "key_lookup", "hash_group",
-                 "hash_group_minmax"):
+                 "hash_group_minmax", "hash_partition", "bloom_probe"):
         assert registry.backends(name) == ("cuda", "ref")
         cuda = registry.resolve(name, "cuda")
         assert registry.resolve(name, "pallas") is cuda
@@ -185,9 +185,7 @@ def test_registry_engines_and_aliases():
         registry.register("x", "pallas", lambda: None)
 
 
-@pytest.mark.parametrize("name,item", [("hash_partition", "B5"),
-                                       ("bloom_probe", "B6"),
-                                       ("ssd_scan", "B7"),
+@pytest.mark.parametrize("name,item", [("ssd_scan", "B7"),
                                        ("flash_attention", "B8")])
 @pytest.mark.parametrize("engine", ["cuda", "ref"])
 def test_registry_unported_kernels_raise(name, item, engine):

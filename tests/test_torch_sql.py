@@ -2,8 +2,10 @@
 
 Both packages load SSB from one seed; the port must read the same tables,
 open a warehouse directory the JAX package wrote, and answer the 13 SSB
-queries plus KERNEL_QUERIES with the reference's rows under the slice
-configuration (no semijoin reduction, one shuffle lane, no result cache).
+queries plus KERNEL_QUERIES with the reference's rows under the first
+slice's configuration (no semijoin reduction, one shuffle lane) and under
+the default SQL configuration (semijoin reduction on, four shuffle lanes),
+with broadcast joins and with every join shuffled; the result cache is off.
 Float columns compare with np.allclose at its defaults, because routed
 grouped sums accumulate in float32; every other column must match exactly.
 """
@@ -32,6 +34,12 @@ SLICE = {"semijoin_reduction": False, "result_cache": False,
 TABLES = ("date_dim", "customer", "supplier", "part", "lineorder")
 PATH_KERNELS = ("filter_eval", "key_lookup", "hash_group",
                 "hash_group_minmax")
+SHUFFLE_KERNELS = ("hash_partition", "bloom_probe")
+# the default SQL configuration with the lane count pinned ("auto" follows
+# the host's core count); "shuffle_joins" also shuffles every join (1-3 keys)
+DEFAULT = {"result_cache": False, "shuffle.partitions": 4}
+CONFIGS = {"default": DEFAULT,
+           "shuffle_joins": {**DEFAULT, "broadcast_threshold_rows": 0.0}}
 QUERIES = {**SSB_QUERIES, **KERNEL_QUERIES}
 
 
@@ -133,9 +141,42 @@ def test_slice_queries_match_reference(warehouses, reference_rows, engine):
             assert moved > 0, k
         else:
             assert moved == 0, k  # auto takes the numpy host paths
-    assert not any(k.startswith(("hash_partition", "bloom_probe"))
-                   for k in after)
+    for k in SHUFFLE_KERNELS:  # off this configuration's path
+        assert after.get(f"{k}[ref]", 0) == before.get(f"{k}[ref]", 0), k
     assert registry.launch_counts() == {} or registry.on_gpu()
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("engine", ["ref", "auto"])
+def test_default_config_queries_match_reference(warehouses, reference_rows,
+                                                config, engine):
+    """Semijoin reducers probe runtime bloom filters on every lineorder
+    stripe and shuffles assign lanes; under ``ref`` all six path kernels
+    dispatch, under ``auto`` none does, and the rows are the reference's."""
+    _, port_dir = warehouses
+    before = registry.dispatch_counts()
+    with tdb.connect(port_dir, engine=engine, **CONFIGS[config]) as conn:
+        for name, sql in QUERIES.items():
+            _assert_rows_equal(_run(conn, sql), reference_rows[name], name)
+    after = registry.dispatch_counts()
+    for k in PATH_KERNELS + SHUFFLE_KERNELS:
+        moved = after.get(f"{k}[ref]", 0) - before.get(f"{k}[ref]", 0)
+        if engine == "ref":
+            assert moved > 0, k
+        else:
+            assert moved == 0, k
+
+
+def test_bloom_probes_are_traced(warehouses):
+    """Each stripe probe of a runtime filter is one traced dispatch."""
+    _, port_dir = warehouses
+    with tdb.connect(port_dir, engine="ref", **DEFAULT,
+                     **{"obs.tracing": True}) as conn:
+        h = conn.execute_async(SSB_QUERIES["q2.1"])
+        h.result(timeout=120).fetchall()
+        dispatched = h._task.trace.summary()["kernel_dispatches"]
+    assert dispatched.get("bloom_probe[ref]", 0) > 0
+    assert dispatched.get("key_lookup[ref]", 0) > 0
 
 
 def test_reference_and_port_route_the_same_kernels(warehouses):
@@ -206,19 +247,3 @@ def test_default_engine_is_cuda_and_never_falls_back(tiny):
             return
         with pytest.raises(tdb.DatabaseError, match="needs an NVIDIA GPU"):
             conn.execute(sql).fetchall()
-
-
-@pytest.mark.parametrize("option,item", [({"semijoin_reduction": True,
-                                           "shuffle.partitions": 1}, "B6"),
-                                          ({"semijoin_reduction": False,
-                                            "shuffle.partitions": 4,
-                                            "broadcast_threshold_rows": 0.0},
-                                           "B5")])
-def test_unported_kernels_raise_under_ref(warehouses, option, item):
-    """Bloom probes and partitioned shuffles are off the slice: under a
-    kernel engine they raise naming their ROADMAP item."""
-    _, port_dir = warehouses
-    with tdb.connect(port_dir, engine="ref", result_cache=False,
-                     **option) as conn:
-        with pytest.raises(tdb.DatabaseError, match=item):
-            conn.execute(SSB_QUERIES["q2.1"]).fetchall()

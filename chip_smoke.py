@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--rows 6000000]
+    python3 chip_smoke.py [--rows 6000000] [--seed 0]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi); fails without CUDA/sm_90;
@@ -13,7 +13,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      function where there is one (a yardstick only; the port never calls
      it) and the bound; hash_partition is also held against the numpy host
      path and bloom_probe against BloomFilter.might_contain, bit-exact;
-  4. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
+  4. the LM serving path: mamba2-130m at full width and depth, random bf16
+     weights from --seed; one prefill_32k step on 2 x 32,768 tokens (the
+     batch of 32 cut to 2) that must launch ssd_scan once per layer, then
+     128 sequences decoded through make_serve_step (a 256-token prompt
+     token by token, then 32 greedy tokens); prints tokens/s, ms a step,
+     peak memory and launches; then, outside the counted window, holds the
+     decode logits against a prefill of the same prompt and the kernel
+     prefill's logits against the plain scan's.  Then flash_attention's own
+     phase: its entry point once at zamba2-1.2b's shared attention;
+  5. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
      13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
      warehouse, under the default SQL configuration (semijoin reduction on,
@@ -22,8 +31,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      slice's configuration (no semijoin reduction, one lane) runs as an
      earlier path over EARLIER_QUERIES on the same warehouse, and its four
      kernels' counters must have risen;
-  5. print the ``kernels`` JSON line, the card line, and last
-     ``{"ok": true, "device": {...}}``.
+  6. print the ``kernels`` JSON line (all eight kernels), the card line, and
+     last ``{"ok": true, "device": {...}}``.
+
+ssd_scan and flash_attention are checked and timed in phase 3 beside the
+SQL kernels (their sweeps from the JAX package's tests, the path shapes,
+and chunk 64 against 256).
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bfloat16 on the tensor cores
 # the default SQL configuration, with the lane count pinned ("auto" follows
 # the host's core count) and the result cache off so every query runs
 CONFIG = {"result_cache": False, "shuffle.partitions": 4}
@@ -58,6 +72,9 @@ LINEORDER_COLS = ("lo_orderkey", "lo_custkey", "lo_partkey", "lo_suppkey",
 PATH_KERNELS = ("filter_eval", "key_lookup", "hash_group",
                 "hash_group_minmax", "hash_partition", "bloom_probe")
 EARLIER_KERNELS = PATH_KERNELS[:4]
+# the LM side: ssd_scan on the serving path, flash_attention at its own
+# entry point (no model path of the JAX package calls it)
+LM_KERNELS = ("ssd_scan", "flash_attention")
 REPLACES = {
     "filter_eval": "src/repro/kernels/filter_eval/filter_eval.py:45",
     "key_lookup": "src/repro/kernels/key_lookup/key_lookup.py:42",
@@ -66,6 +83,9 @@ REPLACES = {
     "hash_partition":
         "src/repro/kernels/hash_partition/hash_partition.py:56",
     "bloom_probe": "src/repro/kernels/bloom/bloom.py:38",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:63",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:62",
 }
 SOURCES = {
     "filter_eval": "src/repro_torch/csrc/filter_eval.cu",
@@ -74,6 +94,8 @@ SOURCES = {
     "hash_group_minmax": "src/repro_torch/csrc/hash_group.cu",
     "hash_partition": "src/repro_torch/csrc/hash_partition.cu",
     "bloom_probe": "src/repro_torch/csrc/bloom_probe.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -144,9 +166,9 @@ def host_round_trips() -> dict:
     return out
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / FP32_OPS_PER_S * 1e3
+    to = ops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -163,16 +185,17 @@ def check_kernels(dev, rng) -> dict:
     from repro_torch.kernels.key_lookup.ops import key_lookup_cuda
     from repro_torch.kernels.key_lookup.ref import key_lookup_ref
 
-    err = {k: 0.0 for k in PATH_KERNELS}
+    err = {k: 0.0 for k in PATH_KERNELS + LM_KERNELS}
     timed = {}
 
     def t(a):
         return torch.as_tensor(a, device=dev)
 
-    def record(name, shape, reps, kern, plain, lib, nbytes, ops, main):
+    def record(name, shape, reps, kern, plain, lib, nbytes, ops, main,
+               peak=FP32_OPS_PER_S):
         ms, pms = time_ms(kern, reps), time_ms(plain, reps)
         lms = time_ms(lib, reps) if lib is not None else None
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = bound_ms(nbytes, ops, peak)
         row = {"shape": shape, "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by}
         print(f"  {name:18s} {shape:22s} kernel {ms:.4f} ms  plain "
@@ -274,6 +297,8 @@ def check_kernels(dev, rng) -> dict:
 
     check_hash_partition(t, rng, err, record)
     check_bloom_probe(t, rng, err, record)
+    check_ssd_scan(t, rng, err, record)
+    check_flash_attention(dev, rng, err, record)
     return {"err": err, "timed": timed}
 
 
@@ -356,8 +381,115 @@ def check_bloom_probe(t, rng, err, record):
                    9 * n + num_bits // 8, 5 * k * n, main)
 
 
+# the JAX package's sweeps (tests/test_kernels.py:43-44, 60-61)
+SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+             (1, 128, 4, 32, 16, 32), (2, 96, 2, 8, 8, 48)]
+FLASH_SWEEP = [(1, 1, 64, 16), (2, 3, 128, 32), (2, 2, 256, 64),
+               (1, 4, 96, 8)]
+# path shapes: mamba2-130m's heads (B, H, P, N, chunk) at the lengths below
+# (decay 6: its strongest decays; the last, the prefill's own length), and
+# zamba2-1.2b's shared attention (B, H, S, d) in bfloat16
+SSD_PATH = (2, 24, 64, 128, 256)
+SSD_LENGTHS = ((4096, 6.0, False), (4096, 0.2, True), (32768, 0.2, False))
+FLASH_PATH = (2, 32, 4096, 64)
+# ssd_scan: the JAX sweep's tolerance (float32 sums in another order)
+SSD_TOL = {"atol": 5e-5, "rtol": 1e-3}
+# flash_attention: the JAX sweep's, float32 and bfloat16 (output rounding)
+FLASH_ATOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+
+
+def ssd_arrays(t, rng, B, S, H, P, N, decay=0.2):
+    """The JAX sweep's inputs: x * 0.1, dA = -|n| * decay, B and C * 0.3;
+    decay 6 gives mamba2-130m's strongest decays (dt near 0.4-1.3 times
+    A down to -16)."""
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32) * 0.1
+    dA = -np.abs(rng.normal(size=(B, S, H)).astype(np.float32)) * decay
+    Bm = rng.normal(size=(B, S, N)).astype(np.float32) * 0.3
+    Cm = rng.normal(size=(B, S, N)).astype(np.float32) * 0.3
+    return [t(a) for a in (x, dA, Bm, Cm)]
+
+
+def ssd_cost(B, S, H, P, N, Q) -> tuple:
+    """(bytes, operations) of one scan: each input read once, y written
+    once; the JAX kernel's 2Q^2N + 2Q^2P + 2QNP + 2PQN per chunk and head."""
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N)
+    ops = B * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P)
+    return nbytes, ops
+
+
+def check_ssd_scan(t, rng, err, record):
+    """Against the plain version on the sweep, at the path's head shape
+    (mamba2-130m: H 24, P 64, N 128, chunk 256) with weak and strong
+    decays, chunk 64 against 256, and at the prefill's own length."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    def compare(label, got, exp):
+        torch.cuda.synchronize()
+        e = float((got - exp).abs().max())
+        assert torch.allclose(got, exp, **SSD_TOL), \
+            f"ssd_scan {label}: max error {e} beyond {SSD_TOL}"
+        err["ssd_scan"] = max(err["ssd_scan"], e)
+
+    for B, S, H, P, N, Q in SSD_SWEEP:
+        a = ssd_arrays(t, rng, B, S, H, P, N)
+        compare(f"sweep {(B, S, H, P, N, Q)}", ssd_scan_cuda(*a, chunk=Q)[0],
+                ssd_scan_ref(*a, chunk=Q))
+    B, H, P, N, Q = SSD_PATH
+    for S, decay, main in SSD_LENGTHS:
+        a = ssd_arrays(t, rng, B, S, H, P, N, decay)
+        y = ssd_scan_cuda(*a, chunk=Q)[0]
+        assert torch.isfinite(y).all(), f"ssd_scan S={S}: not finite"
+        compare(f"S={S} decay {decay}", y, ssd_scan_ref(*a, chunk=Q))
+        compare(f"S={S} decay {decay} chunk 64 vs 256",
+                ssd_scan_cuda(*a, chunk=64)[0], y)
+        if decay == 0.2:
+            record("ssd_scan", f"B={B} S={S} H={H} P={P} N={N} Q={Q}",
+                   10 if main else 3,
+                   lambda: ssd_scan_cuda(*a, chunk=Q),
+                   lambda: ssd_scan_ref(*a, chunk=Q), None,
+                   *ssd_cost(B, S, H, P, N, Q), main)
+
+
+def check_flash_attention(dev, rng, err, record):
+    """Against the plain version on the sweep (causal and full), at head
+    dims 64, 128, 256, and at zamba2-1.2b's shared attention in bfloat16
+    (B 2, H 32, S 4096, d 64), beside one SDPA call (library time only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def arrays(shape, dtype):
+        return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                .to(dev, dtype) for _ in range(3)]
+
+    cases = [(s, dt, c) for s in FLASH_SWEEP
+             for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [((2, 4, 512, d), dt, c) for d in (64, 128, 256)
+              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [(FLASH_PATH, torch.bfloat16, True)]  # last: timed below
+    for shape, dtype, causal in cases:
+        q, k, v = arrays(shape, dtype)
+        bq = 32 if shape[2] % 32 == 0 else shape[2]
+        got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
+                                   block_k=bq)
+        exp = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = float((got.float() - exp.float()).abs().max())
+        assert got.dtype == dtype and e <= FLASH_ATOL[dtype], \
+            f"flash_attention {shape} {dtype} causal={causal}: max error {e}"
+        err["flash_attention"] = max(err["flash_attention"], e)
+    B, H, S, d = FLASH_PATH
+    record("flash_attention", f"B={B} H={H} S={S} d={d} bf16 causal", 10,
+           lambda: flash_attention_cuda(q, k, v),
+           lambda: attention_ref(q, k, v),
+           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+           4 * B * H * S * d * 2, 2 * 2 * B * H * S * S * d / 2, True,
+           BF16_OPS_PER_S)
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 5: the SQL main path
 # ---------------------------------------------------------------------------
 def rows_of(cur):
     return cur.fetchall()
@@ -499,6 +631,159 @@ def main_path(rows: int, work_dir: str) -> dict:
         shutil.rmtree(work_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the LM serving path (mamba2-130m) and flash_attention's phase
+# ---------------------------------------------------------------------------
+LM_ARCH = "mamba2-130m"
+PREFILL_BATCH = 2      # prefill_32k's batch of 32, cut (see serve_lm)
+DECODE_BATCH = 128     # decode_32k's batch
+PROMPT, GENERATE = 256, 32
+# decode's logits at the prompt's last position against a prefill of the
+# same prompt: the JAX package's decode-vs-forward bound for bfloat16
+# (tests/test_models.py:90-94)
+DECODE_TOL = {"atol": 0.15, "rtol": 0.15}
+# prefill logits with the kernel against the plain scan, as a fraction of
+# the plain logits' largest magnitude: the kernel's float32 sums differ in
+# order, which flips bfloat16 roundings of the scan output in some of the
+# 24 layers; a wrong scan moves the logits by their own size
+LOGIT_REL_TOL = 0.1
+
+
+def logits_diff(a, b, step: int = 4096) -> tuple:
+    """(largest |a - b|, largest |b|, argmax agreement) over (B, S, V)
+    logits, a slice of positions at a time (float32 copies of the whole
+    would take twice the bfloat16 tensors' 6.6 GB)."""
+    diff = scale = 0.0
+    agree = 0
+    for s in range(0, a.shape[1], step):
+        x, y = a[:, s:s + step].float(), b[:, s:s + step].float()
+        diff = max(diff, float((x - y).abs().max()))
+        scale = max(scale, float(y.abs().max()))
+        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return diff, scale, agree / (a.shape[0] * a.shape[1])
+
+
+def serve_lm(dev, seed: int) -> int:
+    """mamba2-130m at full width and depth, random bf16 weights from a
+    seeded generator: one prefill_32k step (batch cut to 2), then 128
+    sequences decoded through make_serve_step (a 256-token prompt token by
+    token, then 32 greedy tokens).  ssd_scan's count goes to 0 just before
+    and is read just after; the comparisons follow outside that window.
+    Returns ssd_scan's launches."""
+    from repro_torch.configs.base import LM_SHAPES, get_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config(LM_ARCH)
+    s = cfg.ssm
+    shape = LM_SHAPES["prefill_32k"]
+    full = shape.global_batch * shape.seq_len * cfg.vocab_size * 2
+    print(f"serving path: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {s.num_heads(cfg.d_model)} SSM heads of "
+          f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}, vocab "
+          f"{cfg.vocab_size}; bf16 weights from torch.Generator seed {seed}",
+          flush=True)
+    print(f"cut: prefill_32k's batch {shape.global_batch} -> "
+          f"{PREFILL_BATCH} (its full-sequence bf16 logits would take "
+          f"{full / 1e9:.1f} GB); decode_32k's batch {DECODE_BATCH} kept, "
+          f"its 32,768-token context cut to a {PROMPT}-token prompt and "
+          f"{GENERATE} new tokens", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = M.init_params(cfg, gen, device=dev)
+    print(f"parameters: {sum(p.numel() for p in model.parameters()):,}",
+          flush=True)
+    prefill = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len),
+                           generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, PROMPT),
+                           generator=gen, device=dev)
+    prefill(model, tokens[:, :1024])  # warm-up: library handles, not counted
+    torch.cuda.synchronize()
+
+    registry.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nxt = prefill(model, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    prefill_launches = registry.launch_counts().get("ssd_scan", 0)
+    assert prefill_launches == cfg.num_layers, \
+        f"prefill launched ssd_scan {prefill_launches} times, want " \
+        f"{cfg.num_layers}"
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = M.init_cache(cfg, DECODE_BATCH, PROMPT + GENERATE, device=dev)
+    for t in range(PROMPT - 1):
+        _, cache = serve(model, cache, prompt[:, t], t)
+    last, cache = M.decode_step(model, cache, prompt[:, -1], PROMPT - 1)
+    tok = last.argmax(-1).to(torch.int32)
+    out = [tok]
+    for t in range(PROMPT, PROMPT + GENERATE - 1):
+        tok, cache = serve(model, cache, tok, t)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_peak = torch.cuda.max_memory_allocated()
+    launches = registry.launch_counts()
+    assert launches.get("ssd_scan", 0) == cfg.num_layers, launches
+    steps = PROMPT + GENERATE - 1
+    print(f"prefill {PREFILL_BATCH} x {shape.seq_len}: {prefill_s:.3f} s, "
+          f"{PREFILL_BATCH * shape.seq_len / prefill_s:,.0f} tokens/s, peak "
+          f"{prefill_peak / 2**30:.2f} GiB, ssd_scan launches "
+          f"{prefill_launches}", flush=True)
+    print(f"decode {DECODE_BATCH} sequences x {steps} steps: {decode_s:.3f} "
+          f"s, {decode_s / steps * 1e3:.2f} ms a step, "
+          f"{DECODE_BATCH * steps / decode_s:,.0f} tokens/s, peak "
+          f"{decode_peak / 2**30:.2f} GiB", flush=True)
+    print(f"launches on the serving path: {launches}", flush=True)
+
+    # --- checks, outside the counted window
+    generated = torch.stack(out, 1)
+    assert generated.shape == (DECODE_BATCH, GENERATE)
+    assert int(generated.min()) >= 0 and \
+        int(generated.max()) < cfg.vocab_size
+    assert torch.isfinite(last.float()).all()
+    ref_last = M.forward(model, prompt)[:, -1]
+    e_dec = float((last.float() - ref_last.float()).abs().max())
+    agree_dec = float((last.argmax(-1) == ref_last.argmax(-1)).float().mean())
+    print(f"decode vs prefill logits at the prompt's last position: max "
+          f"|diff| {e_dec:.5f} (tolerance {DECODE_TOL}), argmax agreement "
+          f"{agree_dec:.4f}", flush=True)
+    assert torch.allclose(last.float(), ref_last.float(), **DECODE_TOL)
+    with_kernel = M.forward(model, tokens)
+    plain = M.forward(model, tokens, use_kernel=False)
+    assert torch.equal(with_kernel[:, -1].argmax(-1).to(torch.int32), nxt)
+    e_pre, scale, agree_pre = logits_diff(with_kernel, plain)
+    print(f"prefill logits, kernel vs plain scan: max |diff| {e_pre:.5f}, "
+          f"largest |logit| {scale:.5f} (tolerance {LOGIT_REL_TOL} of it), "
+          f"argmax agreement over all positions {agree_pre:.5f}", flush=True)
+    assert e_pre <= LOGIT_REL_TOL * scale, "prefill logits disagree"
+    return launches["ssd_scan"]
+
+
+def flash_phase(dev, rng) -> int:
+    """flash_attention's own entry point, once, at zamba2-1.2b's shared
+    attention (no model path calls it); returns its launches."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q, k, v = (torch.from_numpy(rng.normal(size=FLASH_PATH)
+                                .astype(np.float32)).to(dev, torch.bfloat16)
+               for _ in range(3))
+    registry.reset_launch_counts()
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = registry.launch_counts().get("flash_attention", 0)
+    assert launches == 1 and torch.isfinite(out.float()).all()
+    print(f"flash_attention phase (entry point, (B, H, S, d) = {FLASH_PATH}, "
+          f"bf16): {launches} launch", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=6_000_000,
@@ -509,6 +794,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # full float32 in float32 matrix products and convolutions (the Mamba2
+    # conv), as the plain versions on the CPU compute them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 2
@@ -539,11 +828,13 @@ def main() -> int:
     print("executor calls (numpy in, numpy out) at the path's shapes:", flush=True)
     round_trip = host_round_trips()
 
+    lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
+                   "flash_attention": flash_phase(dev, rng)}
     work = os.path.join(HERE, "build", "chip_smoke_wh")
-    launches = main_path(args.rows, work)
+    launches = {**main_path(args.rows, work), **lm_launches}
 
     kernels = []
-    for k in PATH_KERNELS:
+    for k in PATH_KERNELS + LM_KERNELS:
         row = checked["timed"][k]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
@@ -551,7 +842,7 @@ def main() -> int:
             "max_abs_err": checked["err"][k], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "host_call_ms": round_trip[k],
+            "shape": row["shape"], "host_call_ms": round_trip.get(k),
             "large": checked["timed"].get(k + "@large"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -48,6 +48,13 @@ _SIGNATURES = {
     # h1, h2, bits, words, num_hashes, mask, n, out, stream
     "bloom_probe_launch": [_P, _P, _P, _I64, _I32, ctypes.c_uint32, _I64,
                            _P, _P],
+    # x, dA, B, C, y, batch, seq, heads, head_dim, d_state, chunk, dtype,
+    # stream
+    "ssd_scan_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                        _I32, _I32, _P],
+    # q, k, v, out, batch*heads, seq, head_dim, scale, causal, dtype, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
+                               ctypes.c_float, _I32, _I32, _P],
 }
 
 _LOCK = threading.Lock()

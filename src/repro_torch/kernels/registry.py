@@ -2,8 +2,9 @@
 
 Every ported kernel package registers its implementations here under a
 stable kernel name (``filter_eval``, ``key_lookup``, ``hash_group``,
-``hash_group_minmax``, ``hash_partition``, ``bloom_probe``).  Callers
-resolve a backend by name + engine selector:
+``hash_group_minmax``, ``hash_partition``, ``bloom_probe`` on the SQL side;
+``ssd_scan`` and ``flash_attention`` on the LM side).  Callers resolve a
+backend by name + engine selector:
 
   * ``cuda``   — the hand-written CUDA kernel's wrapper (``pallas`` is an
                  accepted alias, so configs written for the JAX package keep
@@ -12,9 +13,6 @@ resolve a backend by name + engine selector:
   * ``ref``    — the plain torch version, run on the CPU;
   * ``auto``   — resolves to ``cuda`` here; the executor reads it as "take
                  the numpy host paths" and never resolves a kernel.
-
-Kernels of the JAX package that are not ported yet raise a ``KeyError``
-naming their ROADMAP item instead of falling back to anything.
 
 Registered functions take and return tensors.  :func:`host_call` adapts one
 to the executor's numpy-in/numpy-out contract: it copies every array to the
@@ -32,12 +30,6 @@ import torch
 VALID_ENGINES = ("auto", "cuda", "pallas", "ref")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
-
-# kernels of the JAX package still to be ported -> their ROADMAP item
-_NOT_PORTED = {
-    "ssd_scan": "B7",
-    "flash_attention": "B8",
-}
 
 # process-wide dispatch tally per "kernel[backend]" — plain int bumps under
 # the GIL, as in the JAX package (the executor resolves once per kernel
@@ -121,11 +113,6 @@ def kernels():
 def resolve(kernel: str, engine: str = "auto") -> Callable:
     """Return the implementation of ``kernel`` for ``engine``."""
     validate_engine(engine)
-    if kernel in _NOT_PORTED:
-        raise KeyError(
-            f"kernel {kernel!r} is not ported to CUDA yet (ROADMAP "
-            f"{_NOT_PORTED[kernel]}); run with engine='auto' or keep it off "
-            f"the path")
     impls = _REGISTRY.get(kernel)
     if impls is None:
         # kernel packages self-register on import; pull them in lazily so
@@ -181,5 +168,5 @@ def _import_all() -> None:
     import importlib
 
     for pkg in ("filter_eval", "hash_group", "key_lookup", "hash_partition",
-                "bloom"):
+                "bloom", "ssd_scan", "flash_attention"):
         importlib.import_module(f".{pkg}.ops", __package__)

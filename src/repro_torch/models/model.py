@@ -1,0 +1,242 @@
+"""Composable decoder-only LM built from a ``ModelConfig``, in PyTorch.
+
+``LM`` holds one module per layer in layer order: the JAX package's scanned
+pattern periods are unrolled (period p, position i -> layer p*period + i),
+then the unscanned tail.  zamba2's shared attention block is one module,
+``LM.shared``, applied at every ``shared_attn`` position.  Parameters keep
+the JAX package's names (``embed``, ``lm_head``, ``final_norm``; per block
+``ln``/``mamba`` or ``ln1``/``ln2``/``attn``/``mlp``), so that
+``models.convert`` can carry its parameter trees across.
+
+``forward`` (prefill), ``init_cache`` and ``decode_step`` keep the JAX
+names and run under ``torch.inference_mode()``: this module serves.  Left
+out until training is ported (ROADMAP A6): rematerialisation and the
+sqrt-scan mode of the JAX package's ``forward``.  The ``moe`` block kind
+waits for the rest of ROADMAP A5 and raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .layers import (NOSHARD, MLP, Attention, ShardCtx, attention,
+                     decode_attention, mlp, param, rms_norm, trunc_normal)
+from .mamba2 import Mamba2, mamba2_decode, mamba2_forward, mamba2_init_cache
+
+ATTN_KINDS = ("attn", "local", "global")
+
+
+class SSMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln = param((cfg.d_model,), torch.float32, device)
+        self.mamba = Mamba2(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln.fill_(1.0)
+        self.mamba.reset_parameters(generator)
+
+
+class AttnBlock(nn.Module):
+    """Attention + MLP with pre-norms (also the zamba2 shared block)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = param((cfg.d_model,), torch.float32, device)
+        self.ln2 = param((cfg.d_model,), torch.float32, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.mlp = MLP(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.reset_parameters(generator)
+        self.mlp.reset_parameters(generator)
+
+
+class SharedSlot(nn.Module):
+    """A ``shared_attn`` position: no weights of its own (they are
+    ``LM.shared``)."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        pass
+
+
+def _make_block(kind: str, cfg: ModelConfig, dtype, device) -> nn.Module:
+    if kind == "ssm":
+        return SSMBlock(cfg, dtype, device)
+    if kind == "shared_attn":
+        return SharedSlot()
+    if kind in ATTN_KINDS:
+        return AttnBlock(cfg, dtype, device)
+    if kind == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the 'moe' block kind is not ported yet (ROADMAP "
+            f"A5: models/moe.py)")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Block kinds in layer order: the periods unrolled, then the tail."""
+    return list(cfg.layer_pattern) * cfg.num_periods + list(cfg.tail_pattern)
+
+
+class LM(nn.Module):
+    """Parameters of a decoder-only LM, uninitialised until
+    ``reset_parameters`` (see ``init_params``) or ``models.convert``."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.kinds = layer_kinds(cfg)
+        d = cfg.d_model
+        self.embed = (None if cfg.embedding_stub
+                      else param((cfg.vocab_size, d), dtype, device))
+        self.lm_head = (param((d, cfg.vocab_size), dtype, device)
+                        if not cfg.tie_embeddings or cfg.embedding_stub
+                        else None)
+        self.layers = nn.ModuleList(
+            _make_block(kind, cfg, dtype, device) for kind in self.kinds)
+        self.shared = (AttnBlock(cfg, dtype, device)
+                       if cfg.shared_attention else None)
+        self.final_norm = param((d,), torch.float32, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("embed", "lm_head"):
+            w = getattr(self, name)
+            if w is not None:
+                w.copy_(trunc_normal(generator, w.shape, 1.0, w.dtype,
+                                     w.device))
+        for block in self.layers:
+            block.reset_parameters(generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+        self.final_norm.fill_(1.0)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device=None) -> LM:
+    """A model with random weights drawn from ``generator``, which must lie
+    on ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    model = LM(cfg, dtype, device)
+    model.reset_parameters(generator)
+    return model
+
+
+# ===========================================================================
+# forward (prefill)
+# ===========================================================================
+def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    if cfg.embedding_stub:
+        return tokens.to(torch.bfloat16)
+    h = F.embedding(tokens, model.embed)
+    if cfg.scale_embeddings:
+        h = h.float() * float(np.float32(np.sqrt(cfg.d_model)))
+    return h.to(torch.bfloat16)
+
+
+def _mlp_part(bp: AttnBlock, h, cfg: ModelConfig, ctx: ShardCtx):
+    ff_in = rms_norm(h, bp.ln2, plus_one=cfg.scale_embeddings)
+    return h + mlp(bp.mlp, ff_in, cfg, ctx)
+
+
+def _apply_block(kind: str, bp: nn.Module, shared: Optional[AttnBlock], h,
+                 cfg: ModelConfig, ctx: ShardCtx, use_kernel: bool):
+    if kind == "ssm":
+        return h + mamba2_forward(bp.mamba, rms_norm(h, bp.ln), cfg, ctx,
+                                  use_kernel=use_kernel)
+    if kind == "shared_attn":
+        bp = shared
+    window = cfg.sliding_window if kind == "local" else None
+    a = attention(bp.attn, rms_norm(h, bp.ln1, plus_one=cfg.scale_embeddings),
+                  cfg, ctx, sliding_window=window)
+    return _mlp_part(bp, h + a, cfg, ctx)
+
+
+def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    h = rms_norm(h, model.final_norm, plus_one=cfg.scale_embeddings)
+    if cfg.tie_embeddings and not cfg.embedding_stub:
+        return h @ model.embed.T
+    return h @ model.lm_head
+
+
+@torch.inference_mode()
+def forward(model: LM, inputs: torch.Tensor, use_kernel: bool = True,
+            ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+    """inputs: (B, S) int tokens, or (B, S, D) embeddings (stub) -> logits
+    (B, S, V).  ``use_kernel`` sends every Mamba2 scan through the
+    registry's ``ssd_scan`` (the CUDA kernel on the card)."""
+    cfg = model.cfg
+    h = _embed(model, inputs)
+    for kind, bp in zip(model.kinds, model.layers):
+        h = _apply_block(kind, bp, model.shared, h, cfg, ctx, use_kernel)
+    return ctx.constrain(_logits(model, h), (ctx.dp_spec, None, ctx.tp))
+
+
+# ===========================================================================
+# decode (serve_step)
+# ===========================================================================
+def _cache_len(kind: str, cfg: ModelConfig, max_seq: int) -> int:
+    if kind == "local" and cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_seq)
+    return max_seq
+
+
+def _init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
+                      device, dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    if kind == "ssm":
+        return mamba2_init_cache(cfg, batch, device)
+    shape = (batch, _cache_len(kind, cfg, max_seq), cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> List[Dict[str, torch.Tensor]]:
+    """One cache per layer, in layer order (every shared_attn position has
+    its own KV cache, as in the JAX package)."""
+    device = torch.device("cuda" if device is None else device)
+    return [_init_block_cache(kind, cfg, batch, max_seq, device)
+            for kind in layer_kinds(cfg)]
+
+
+def _decode_block(kind: str, bp: nn.Module, shared: Optional[AttnBlock], h,
+                  cache, pos: int, cfg: ModelConfig, ctx: ShardCtx):
+    if kind == "ssm":
+        out, _ = mamba2_decode(bp.mamba, rms_norm(h, bp.ln), cache, cfg, ctx)
+        return h + out
+    if kind == "shared_attn":
+        bp = shared
+    window = cfg.sliding_window if kind == "local" else None
+    a, _, _ = decode_attention(
+        bp.attn, rms_norm(h, bp.ln1, plus_one=cfg.scale_embeddings),
+        cache["k"], cache["v"], pos, cfg, ctx, sliding_window=window)
+    return _mlp_part(bp, h + a, cfg, ctx)
+
+
+@torch.inference_mode()
+def decode_step(model: LM, cache: List[Dict[str, torch.Tensor]],
+                inputs: torch.Tensor, pos: int,
+                ctx: ShardCtx = NOSHARD
+                ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """inputs: (B,) int tokens, or (B, 1, D) embeddings (stub); pos: the
+    position being written.  Updates ``cache`` in place (the JAX package
+    returns a new one) and returns (logits (B, V), cache)."""
+    cfg = model.cfg
+    pos = int(pos)
+    h = _embed(model, inputs if cfg.embedding_stub else inputs[:, None])
+    for kind, bp, cs in zip(model.kinds, model.layers, cache):
+        h = _decode_block(kind, bp, model.shared, h, cs, pos, cfg, ctx)
+    return _logits(model, h)[:, 0], cache

@@ -4,7 +4,8 @@ Imports no JAX, so it runs on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Every test skips without a GPU of compute capability >= 9.0.  Tolerances:
+Every test skips without a GPU of compute capability >= 9.0.  Tolerances
+of the SQL kernels:
 filter_eval, key_lookup, hash_partition, bloom_probe, counts, integer-valued
 sums and MIN/MAX are exact;
 sums of random floats agree at atol 1e-3, because float atomics add in an
@@ -169,3 +170,131 @@ def test_cuda_new_kernels_count_launches(cuda):
     after = registry.launch_counts()
     for name in ("bloom_probe", "hash_partition"):
         assert after.get(name, 0) == before.get(name, 0) + 1, name
+
+
+# ---------------------------------------------------------------------------
+# LM side: ssd_scan and flash_attention.  Tolerances: ssd_scan atol 5e-5
+# and rtol 1e-3, the JAX kernel's own (float32 sums in another order);
+# flash_attention atol 3e-5 in float32 and 3e-2 in bfloat16 (the output's
+# rounding), as the JAX package's sweep states them.
+# ---------------------------------------------------------------------------
+SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
+             (1, 128, 4, 32, 16, 32), (2, 96, 2, 8, 8, 48)]
+FLASH_SHAPES = [(1, 1, 64, 16), (2, 3, 128, 32), (2, 2, 256, 64),
+                (1, 4, 96, 8)]
+
+
+def ssd_inputs(B, S, H, P, N, seed=None, decay=0.2):
+    """The JAX package's sweep inputs: x * 0.1, dA = -|n| * decay, B and C
+    * 0.3, from numpy's generator seeded with S (or ``seed``)."""
+    rng = np.random.default_rng(S if seed is None else seed)
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32) * 0.1
+    dA = -np.abs(rng.normal(size=(B, S, H)).astype(np.float32)) * decay
+    Bm = rng.normal(size=(B, S, N)).astype(np.float32) * 0.3
+    Cm = rng.normal(size=(B, S, N)).astype(np.float32) * 0.3
+    return x, dA, Bm, Cm
+
+
+def flash_inputs(shape, dtype):
+    rng = np.random.default_rng(shape[2])
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("cfg", SSD_CASES + [(2, 1024, 24, 64, 128, 256),
+                                             (1, 512, 4, 64, 64, 256)])
+def test_cuda_ssd_scan(cuda, cfg):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    B, S, H, P, N, Q = cfg
+    arrs = ssd_inputs(B, S, H, P, N)
+    got, _ = ssd_scan_cuda(*[_t(a, cuda) for a in arrs], chunk=Q)
+    exp = ssd_scan_ref(*[_t(a) for a in arrs], chunk=Q)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, P)
+    np.testing.assert_allclose(_np(got), _np(exp), atol=5e-5, rtol=1e-3)
+
+
+def test_cuda_ssd_scan_chunk_invariance_and_strong_decay(cuda):
+    """Chunk 64 and 256 agree; mamba2-130m's decays (dA near -6 a step, so
+    cum near -1500 in a chunk) stay finite: L is never factored."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    arrs = [_t(a, cuda) for a in ssd_inputs(2, 512, 3, 64, 128, seed=7,
+                                            decay=6.0)]
+    y64, _ = ssd_scan_cuda(*arrs, chunk=64)
+    y256, _ = ssd_scan_cuda(*arrs, chunk=256)
+    assert torch.isfinite(y256).all()
+    np.testing.assert_allclose(_np(y64), _np(y256), atol=5e-5, rtol=1e-3)
+    exp = ssd_scan_ref(*[a.cpu() for a in arrs], chunk=256)
+    np.testing.assert_allclose(_np(y256), _np(exp), atol=5e-5, rtol=1e-3)
+
+
+def test_cuda_ssd_scan_bf16_inputs(cuda):
+    """bfloat16 inputs are read as they are and computed in float32."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    arrs = [_t(a).to(torch.bfloat16) for a in ssd_inputs(2, 128, 2, 64, 32)]
+    got, _ = ssd_scan_cuda(*[a.to(cuda) for a in arrs], chunk=64)
+    exp = ssd_scan_ref(*arrs, chunk=64)
+    np.testing.assert_allclose(_np(got), _np(exp), atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES + [(1, 2, 256, 128),
+                                                  (1, 2, 192, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention(cuda, shape, dtype, causal):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = flash_inputs(shape, dtype)
+    bq = 32 if shape[2] % 32 == 0 else shape[2]
+    got = flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda),
+                               causal=causal, block_q=bq, block_k=bq)
+    exp = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(_np(got.float()), _np(exp.float()), atol=atol)
+
+
+def test_cuda_lm_kernels_count_launches(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    before = registry.launch_counts()
+    ssd_scan(*[_t(a, cuda) for a in ssd_inputs(1, 32, 2, 8, 4)], chunk=8)
+    q, k, v = (t.to(cuda) for t in flash_inputs((1, 1, 64, 16),
+                                                 torch.float32))
+    flash_attention(q, k, v)
+    after = registry.launch_counts()
+    for name in ("ssd_scan", "flash_attention"):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name
+
+
+def test_cuda_mamba2_prefill_and_decode(cuda):
+    """Reduced mamba2-130m on the card: the kernel prefill matches the
+    plain scan's, and decoding token by token matches the prefill's last
+    logits (atol/rtol 0.15, the JAX package's decode-vs-forward bound)."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import model as M
+
+    cfg = reduced_config(get_config("mamba2-130m"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = M.init_params(cfg, gen, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                           device=cuda)
+    before = registry.launch_counts().get("ssd_scan", 0)
+    with_kernel = M.forward(model, tokens)
+    assert registry.launch_counts()["ssd_scan"] == before + cfg.num_layers
+    plain = M.forward(model, tokens, use_kernel=False)
+    np.testing.assert_allclose(_np(with_kernel.float()), _np(plain.float()),
+                               atol=2e-2)
+    cache = M.init_cache(cfg, 2, 32, device=cuda)
+    for t in range(32):
+        logits, cache = M.decode_step(model, cache, tokens[:, t], t)
+    np.testing.assert_allclose(_np(logits.float()),
+                               _np(with_kernel[:, -1].float()),
+                               atol=0.15, rtol=0.15)

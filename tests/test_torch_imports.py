@@ -63,3 +63,33 @@ def test_port_lint_is_clean():
     from repro_torch.analysis import lint_paths
 
     assert lint_paths([PORT]) == []
+
+
+def test_lm_prefill_loads_no_jax_or_reference():
+    """Building reduced mamba2-130m (the configs load their per-arch files
+    by an importlib string, which the AST walk does not see) and running
+    one prefill and one decode step on the CPU import neither JAX nor the
+    JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch.configs.base import get_config, reduced_config
+        from repro_torch.models import model as M
+        from repro_torch.train.steps import make_prefill_step, make_serve_step
+        cfg = reduced_config(get_config("mamba2-130m"))
+        gen = torch.Generator().manual_seed(0)
+        model = M.init_params(cfg, gen, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        nxt = make_prefill_step(cfg)(model, tokens)
+        cache = M.init_cache(cfg, 2, 16, device="cpu")
+        tok, cache = make_serve_step(cfg)(model, cache, nxt, 0)
+        assert nxt.shape == tok.shape == (2,)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -15,37 +15,24 @@
 // causal, against a few bytes per row); the tensor cores' bf16 rate is the
 // card's peak for that work.  This first version computes on the CUDA
 // cores in float32: 256 threads each hold a 4x4 register tile of the 64x64
-// scores and a 4x(4*KD) tile of the 64xd accumulator, read float4s from q
-// and k tiles stored transposed, and reduce each row's max and sum over 4
-// neighbouring lanes by shuffles.  Tiles are the kernel's own (64 x 64);
+// scores and a 4x(4*KD) tile of the 64xd accumulator (lm_common.cuh), read
+// float4s from q and k tiles stored transposed, and reduce each row's max
+// and sum over 4 neighbouring lanes by shuffles.  Tiles are the kernel's own (64 x 64);
 // the API's block_q/block_k only set the wrapper's divisibility check.
 // Shared memory: 2*d*68 + 64*64*KD + 64*68 floats, 223 KB at d = 256.
 // Heavy causal tiles (late q tiles) are scheduled first.
 #include <cfloat>
 
-#include "common.cuh"
-#include "dtypes.cuh"
+#include "lm_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kTile = 64;       // q rows and k rows per tile
-constexpr int kLd = kTile + 4;  // padded row of a transposed [col][row] tile
+using repro::kLd;
+using repro::kTile;
+using repro::ld4;
+using repro::outer4;
+constexpr int kBlock = repro::kThreads;
 constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void outer4(float (&acc)[4][4], float4 a,
-                                       float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-}
 
 inline size_t smem_floats(int d, int kd) {
   return 2 * static_cast<size_t>(d) * kLd + kTile * 64 * kd + kTile * kLd +
@@ -230,9 +217,6 @@ REPRO_API int flash_attention_launch(const void* q, const void* k,
     case repro::kBF16:
       return launch_d<__nv_bfloat16>(q, k, v, out, bh, seq, head_dim, scale,
                                      causal, s);
-    case repro::kF16:
-      return launch_d<__half>(q, k, v, out, bh, seq, head_dim, scale, causal,
-                              s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

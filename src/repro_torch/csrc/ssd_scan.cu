@@ -12,50 +12,39 @@
 // per (b, h) walks its chunks itself, with the state in shared memory.
 //
 // Bound on this card: operations (float32 outside the tensor cores; the
-// JAX kernel does 2Q^2N + 2Q^2P + 4QNP per chunk and head, against a few
-// bytes of input per row).  Design:
+// causal work is Q(Q+1)(N + P) + 4QNP per chunk and head, against a few
+// bytes of input per row; the JAX kernel computes the full Q x Q square).
+// Design:
 //  - A chunk of 256 rows does not fit shared memory (B and C alone are
 //    128 KB each in float32 at N = 128), so it is walked in tiles of 64
 //    rows: for each tile of output rows i, the carried state's part, then
 //    the causal tiles j <= i of (C_i B_j^T o L_ij) x_j (tiles above the
 //    diagonal are all zero and skipped); then the state update, summed in
 //    registers over every tile j.  About 134 KB of dynamic shared memory.
-//  - 256 threads; each holds a 4x4 register tile of every 64x64 product and
-//    reads float4s from tiles stored transposed where that keeps the reads
-//    contiguous.
+//  - 256 threads; each holds a 4x4 register tile of every 64x64 product
+//    (lm_common.cuh) and reads float4s from tiles stored transposed where
+//    that keeps the reads contiguous.
 //  - L is computed from the difference cum_i - cum_j for j <= i only, never
 //    as exp(cum_i) * exp(-cum_j): at mamba2-130m's decays cum falls to about
 //    -1e3 within a chunk, and exp(+1e3) is inf in float32.
 //  - B and C are indexed by batch, so the H blocks of one batch read the
 //    same rows (through L2) instead of per-head copies.
-//  - Inputs are read in their dtype and converted to float32; y is float32.
+//  - Inputs (all float32 or all bfloat16) are read in their dtype and
+//    converted to float32; y is float32.
 //  - Occupancy: B*H blocks, 48 at the prefill shape (B = 2, H = 24) on 132
 //    SMs; states of parallel chunks are work for a later version.
-#include "common.cuh"
-#include "dtypes.cuh"
+#include "lm_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kTile = 64;       // rows of a chunk per tile
-constexpr int kLd = kTile + 4;  // padded row of a transposed [col][row] tile
+using repro::kLd;
+using repro::kTile;
+using repro::ld4;
+using repro::outer4;
+constexpr int kBlock = repro::kThreads;
 constexpr int kP = 64;          // columns of the x, y and state tiles
 constexpr int kMaxN = 128;
 constexpr int kMaxQ = 1024;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void outer4(float (&acc)[4][4], float4 a,
-                                       float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-}
 
 inline size_t smem_floats(int N, int Q) {
   const int qr = (Q + 3) & ~3, np = (N + 3) & ~3;
@@ -258,9 +247,6 @@ REPRO_API int ssd_scan_launch(const void* x, const void* dA, const void* B,
     case repro::kBF16:
       return launch<__nv_bfloat16>(x, dA, B, C, y, batch, seq, heads,
                                    head_dim, d_state, chunk, s);
-    case repro::kF16:
-      return launch<__half>(x, dA, B, C, y, batch, seq, heads, head_dim,
-                            d_state, chunk, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

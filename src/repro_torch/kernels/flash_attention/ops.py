@@ -15,7 +15,7 @@ from ..registry import count_launch, register, resolve
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256  # the q, k and v tiles of 64 rows fit shared memory
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @register("flash_attention", "cuda")
@@ -43,7 +43,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
         return torch.empty_like(q)
     if d > MAX_HEAD_DIM or q.dtype not in DTYPES:
         raise ValueError(f"flash_attention kernel takes d <= {MAX_HEAD_DIM} "
-                         f"in float32, bfloat16 or float16; got d={d}, "
+                         f"in float32 or bfloat16; got d={d}, "
                          f"{q.dtype}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)

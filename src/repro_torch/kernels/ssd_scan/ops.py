@@ -14,7 +14,7 @@ from .ref import ssd_scan_ref
 MAX_HEAD_DIM = 64   # P: the kernel's output tile is 64 columns wide
 MAX_STATE = 128     # N: the state and two (N, 64) tiles fit shared memory
 MAX_CHUNK = 1024    # Q: the chunk's cumulative decays sit in shared memory
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @register("ssd_scan", "cuda")
@@ -24,8 +24,8 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
     float32 with zero initial state, as ``ssd_reference`` gives it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which reads the inputs in their dtype (float32, bfloat16 or float16;
-    mixed dtypes are promoted to one) and computes in float32."""
+    which reads the inputs in their one dtype (float32 or bfloat16) and
+    computes in float32."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     b, s, h, p = x.shape
@@ -47,12 +47,11 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
                          f"N <= {MAX_STATE} and chunk <= {MAX_CHUNK}; got "
                          f"P={p}, N={n}, chunk={q}")
     dtype = x.dtype
-    for t in (dA, Bm, Cm):
-        dtype = torch.promote_types(dtype, t.dtype)
-    if dtype not in DTYPES:
-        raise ValueError(f"ssd_scan kernel takes float32, bfloat16 or "
-                         f"float16 inputs, got {dtype}")
-    x, dA, Bm, Cm = (t.to(dtype).contiguous() for t in (x, dA, Bm, Cm))
+    if dtype not in DTYPES or any(t.dtype != dtype for t in (dA, Bm, Cm)):
+        raise ValueError("ssd_scan kernel takes inputs of one dtype, float32 "
+                         f"or bfloat16; got {x.dtype}, {dA.dtype}, "
+                         f"{Bm.dtype}, {Cm.dtype}")
+    x, dA, Bm, Cm = (t.contiguous() for t in (x, dA, Bm, Cm))
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     err = _build.library().ssd_scan_launch(
         x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),

@@ -165,11 +165,11 @@ def _causal_conv(xBC, w, b):
     return F.silu(out).transpose(1, 2)  # (B, S, C)
 
 
-def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
-                   use_kernel: bool = True):
-    """Prefill path: full-sequence chunked SSD."""
+def mamba2_scan_inputs(p: Mamba2, x, cfg: ModelConfig):
+    """The prefill's projections up to the scan: (z, xs, x_scaled, dA, Bm,
+    Cm), the last four in float32 as the scan takes them."""
     s = cfg.ssm
-    d_inner, nheads, conv_dim, _ = _dims(cfg)
+    d_inner, nheads, _, _ = _dims(cfg)
     B, S, _ = x.shape
     zxbcdt = x @ p.in_proj
     z, xBC, dt = _split_proj(zxbcdt, cfg)
@@ -181,6 +181,16 @@ def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
     A = -torch.exp(p.A_log)  # (H,)
     dA = dt * A[None, None, :]
     x_scaled = xs.float() * dt[..., None]
+    return z, xs, x_scaled, dA, Bm, Cm
+
+
+def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
+                   use_kernel: bool = True):
+    """Prefill path: full-sequence chunked SSD."""
+    s = cfg.ssm
+    d_inner = _dims(cfg)[0]
+    B, S, _ = x.shape
+    z, xs, x_scaled, dA, Bm, Cm = mamba2_scan_inputs(p, x, cfg)
     if use_kernel:
         from ..kernels.registry import resolve
 

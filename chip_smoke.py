@@ -4,7 +4,10 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi); fails without CUDA/sm_90;
-  2. build the CUDA kernels from src/repro_torch/csrc into build/;
+  2. build the CUDA kernels from src/repro_torch/csrc into build/; print
+     the tensor-core flash_attention kernel's registers, shared memory and
+     spills (ptxas -v) and the HGMMA instructions in its SASS (cuobjdump),
+     which must be more than 0;
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (1024-row morsels and 8192-row stripes, SSB's
      dictionaries and runtime bloom filters, few to thousands of groups,
@@ -13,6 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      function where there is one (a yardstick only; the port never calls
      it) and the bound; hash_partition is also held against the numpy host
      path and bloom_probe against BloomFilter.might_contain, bit-exact;
+     hash_group_minmax's two paths are timed against each other at its
+     one-block limit, and flash_attention's two routes at the path shape
+     (bfloat16 on the tensor cores beside the CUDA-core kernel on the same
+     inputs; float32 on the CUDA cores);
   4. the LM serving path: mamba2-130m at full width and depth, random bf16
      weights from --seed; one prefill_32k step on 2 x 32,768 tokens (the
      batch of 32 cut to 2) that must launch ssd_scan once per layer, then
@@ -23,18 +30,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      prefill's logits against the plain scan's, and every layer's scan
      against its plain version on that layer's own inputs from the
      prefill.  Then flash_attention's own
-     phase: its entry point once at zamba2-1.2b's shared attention;
+     phase: its entry point once at zamba2-1.2b's shared attention, which
+     must take the tensor-core route;
   5. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
      13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
      warehouse, under the default SQL configuration (semijoin reduction on,
      four shuffle lanes, no result cache); the row sets must agree and all
-     six path kernels' launch counters must have risen.  Then the first
+     six path kernels' launch counters (and hash_group_minmax's one-block
+     path's) must have risen.  Then the first
      slice's configuration (no semijoin reduction, one lane) runs as an
      earlier path over EARLIER_QUERIES on the same warehouse, and its four
      kernels' counters must have risen;
-  6. print the ``kernels`` JSON line (all eight kernels), the card line, and
-     last ``{"ok": true, "device": {...}}``.
+  6. print the launches by route and path, the ``kernels`` JSON line (all
+     eight kernels), the card line, and last ``{"ok": true, "device":
+     {...}}``.
 
 ssd_scan and flash_attention are checked and timed in phase 3 beside the
 SQL kernels (their sweeps from the JAX package's tests, the path shapes,
@@ -97,8 +107,13 @@ SOURCES = {
     "hash_partition": "src/repro_torch/csrc/hash_partition.cu",
     "bloom_probe": "src/repro_torch/csrc/bloom_probe.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
-    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
 }
+# flash_attention's routes (kernels/flash_attention/ops.py:route) and
+# hash_group_minmax's paths (ops.py:minmax_path), each with its own count
+ROUTES = ("flash_attention.wgmma", "flash_attention.simt",
+          "hash_group_minmax.one_block", "hash_group_minmax.multi_block")
+SIMT_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
 
 def card_line() -> str:
@@ -168,6 +183,31 @@ def host_round_trips() -> dict:
     return out
 
 
+def tensor_core_report(lib, log: str) -> None:
+    """ptxas's registers, shared memory and spills for the tensor-core
+    flash_attention kernel, and the HGMMA (wgmma) instructions in the SASS
+    of each of its instantiations; fails when there are none."""
+    part = log.split("== flash_attention_wgmma.cu", 1)[1].split("\n== ", 1)[0]
+    print("flash_attention_wgmma.cu, ptxas -v:", flush=True)
+    for line in part.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.split("ptxas info    : ", 1)[-1].strip(),
+                  flush=True)
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name, body = fn.split("\n", 1)
+        if "flash_wgmma_kernel" in name:
+            counts[name.strip()] = sum("HGMMA" in ln
+                                       for ln in body.splitlines())
+    print(f"  HGMMA instructions in the SASS: {counts}", flush=True)
+    assert counts and all(c > 0 for c in counts.values()), counts
+
+
 def bound_ms(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / peak * 1e3
@@ -207,6 +247,7 @@ def check_kernels(dev, rng) -> dict:
             timed[name] = row
         else:
             timed.setdefault(name + "@large", row)
+        return row
 
     # filter_eval: bit-exact
     for n, k, main in ((1024, 1, False), (1024, 2, True), (1024, 4, False),
@@ -297,11 +338,49 @@ def check_kernels(dev, rng) -> dict:
                             hi.scatter_reduce(0, kcodes, kvals, "amax")),
                    8 * n + 8 * g, 2 * n, main)
 
+    check_minmax_paths(t, rng)
     check_hash_partition(t, rng, err, record)
     check_bloom_probe(t, rng, err, record)
     check_ssd_scan(t, rng, err, record)
     check_flash_attention(dev, rng, err, record)
     return {"err": err, "timed": timed}
+
+
+def check_minmax_paths(t, rng) -> None:
+    """hash_group_minmax's two paths, bit-exact against the plain version
+    and timed against each other at the SQL path's 1,024-row morsel and at
+    the one-block limit (ONE_BLOCK_ROWS) and four times it; the wrapper's
+    call at the morsel makes one launch, through the one-block path."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.hash_group.ops import (ONE_BLOCK_ROWS, _prepare,
+                                                    hash_group_minmax_cuda,
+                                                    launch_minmax,
+                                                    minmax_path)
+    from repro_torch.kernels.hash_group.ref import hash_group_minmax_ref
+
+    for n in (1024, ONE_BLOCK_ROWS, 4 * ONE_BLOCK_ROWS):
+        codes, vals = _prepare(t(rng.integers(-1, 7, n).astype(np.int32)),
+                               t(rng.normal(size=n).astype(np.float32)), 7)
+        exp = torch.stack(hash_group_minmax_ref(codes, vals, 7))
+        ms = {}
+        for path in ("one_block", "multi_block"):
+            got = launch_minmax(codes, vals, 7, path)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), exp.view(torch.int32)), \
+                f"hash_group_minmax {path} n={n}: differs"
+            ms[path] = time_ms(lambda: launch_minmax(codes, vals, 7, path),
+                               200)
+        print(f"  hash_group_minmax  paths at G=7 n={n}: one_block "
+              f"{ms['one_block']:.4f} ms, multi_block {ms['multi_block']:.4f}"
+              f" ms; the wrapper takes {minmax_path(n, 7)} "
+              f"(ONE_BLOCK_ROWS {ONE_BLOCK_ROWS})", flush=True)
+        if n == 1024:
+            before = registry.launch_counts()
+            hash_group_minmax_cuda(codes, vals, 7)
+            after = registry.launch_counts()
+            moved = {k: after.get(k, 0) - before.get(k, 0) for k in ROUTES[2:]}
+            assert moved == {"hash_group_minmax.one_block": 1,
+                             "hash_group_minmax.multi_block": 0}, moved
 
 
 def _with_specials(col, rng):
@@ -473,7 +552,8 @@ def check_flash_attention(dev, rng, err, record):
     dims 64, 128, 256, and at zamba2-1.2b's shared attention in bfloat16
     (B 2, H 32, S 4096, d 64), beside one SDPA call (library time only)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                         launch_route, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     def arrays(shape, dtype):
@@ -484,6 +564,10 @@ def check_flash_attention(dev, rng, err, record):
              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
     cases += [((2, 4, 512, d), dt, c) for d in (64, 128, 256)
               for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    # the tensor-core route's head dims (48 and 96 pad to its 64- and
+    # 128-column tiles) at lengths on and off its 64- and 128-row tiles
+    cases += [((2, 3, s, d), torch.bfloat16, c) for d in (16, 32, 48, 64, 96, 128)
+              for s in (64, 96, 128, 256) for c in (True, False)]
     cases += [(FLASH_PATH, torch.bfloat16, True)]  # last: timed below
     for shape, dtype, causal in cases:
         q, k, v = arrays(shape, dtype)
@@ -499,12 +583,38 @@ def check_flash_attention(dev, rng, err, record):
             f"{e} beyond {FLASH_TOL[dtype]}"
         err["flash_attention"] = max(err["flash_attention"], e)
     B, H, S, d = FLASH_PATH
-    record("flash_attention", f"B={B} H={H} S={S} d={d} bf16 causal", 10,
+    assert route(q.dtype, d) == "wgmma"
+    ops = 2 * 2 * B * H * S * S * d / 2
+    row = record("flash_attention", f"B={B} H={H} S={S} d={d} bf16 causal",
+                 10, lambda: flash_attention_cuda(q, k, v),
+                 lambda: attention_ref(q, k, v),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True),
+                 4 * B * H * S * d * 2, ops, True, BF16_OPS_PER_S)
+    # the CUDA-core route on the same bfloat16 inputs (the kernel this path
+    # took before the tensor-core one), then on float32 inputs, its own
+    got = launch_route(q, k, v, True, "simt")
+    assert torch.allclose(got.float(), exp.float(),
+                          **FLASH_TOL[torch.bfloat16])
+    simt_bf16 = time_ms(lambda: launch_route(q, k, v, True, "simt"), 3)
+    wgmma = row["ms"]
+    print(f"  flash_attention    routes at the path shape, bf16: wgmma "
+          f"{wgmma:.4f} ms ({ops / wgmma / 1e9:.1f} TFLOP/s), simt "
+          f"{simt_bf16:.4f} ms", flush=True)
+    row["simt_bf16_ms"] = simt_bf16
+    q, k, v = (x.float() for x in (q, k, v))
+    assert route(q.dtype, d) == "simt"
+    got, exp = flash_attention_cuda(q, k, v), attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    e = float((got - exp).abs().max())
+    assert torch.allclose(got, exp, **FLASH_TOL[torch.float32]), \
+        f"flash_attention {FLASH_PATH} float32: max error {e}"
+    err["flash_attention"] = max(err["flash_attention"], e)
+    record("flash_attention.simt", f"B={B} H={H} S={S} d={d} f32 causal", 3,
            lambda: flash_attention_cuda(q, k, v),
            lambda: attention_ref(q, k, v),
            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-           4 * B * H * S * d * 2, 2 * 2 * B * H * S * S * d / 2, True,
-           BF16_OPS_PER_S)
+           4 * B * H * S * d * 4, ops, True)
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +747,8 @@ def main_path(rows: int, work_dir: str) -> dict:
             db, wh, {**CONFIG, "exchange.spill_dir": spill}, queries,
             PATH_KERNELS, f"main path: default SQL configuration {CONFIG}, "
             f"{len(queries)} queries, lineorder {rows} rows")
+        # the executor's 1,024-row morsels take the one-launch path
+        assert launches.get("hash_group_minmax.one_block", 0) > 0, launches
         run_path(
             db, wh, {**EARLIER, "exchange.spill_dir": spill},
             {name: queries[name] for name in EARLIER_QUERIES},
@@ -824,9 +936,10 @@ def serve_lm(dev, seed: int) -> int:
     return launches["ssd_scan"]
 
 
-def flash_phase(dev, rng) -> int:
+def flash_phase(dev, rng) -> dict:
     """flash_attention's own entry point, once, at zamba2-1.2b's shared
-    attention (no model path calls it); returns its launches."""
+    attention (no model path calls it), through the tensor-core route;
+    returns its launches, in all and by route."""
     from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -836,10 +949,15 @@ def flash_phase(dev, rng) -> int:
     registry.reset_launch_counts()
     out = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    launches = registry.launch_counts().get("flash_attention", 0)
-    assert launches == 1 and torch.isfinite(out.float()).all()
+    counts = registry.launch_counts()
+    launches = {k: counts.get(k, 0) for k in
+                ("flash_attention", "flash_attention.wgmma",
+                 "flash_attention.simt")}
+    assert launches == {"flash_attention": 1, "flash_attention.wgmma": 1,
+                        "flash_attention.simt": 0}, launches
+    assert torch.isfinite(out.float()).all()
     print(f"flash_attention phase (entry point, (B, H, S, d) = {FLASH_PATH}, "
-          f"bf16): {launches} launch", flush=True)
+          f"bf16): {launches}", flush=True)
     return launches
 
 
@@ -877,6 +995,7 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line or "Used" in line:
             print("  " + line.split("ptxas info    : ", 1)[-1], flush=True)
+    tensor_core_report(lib, _build.build_log())
     _build.library()
 
     dev = torch.device("cuda")
@@ -888,10 +1007,15 @@ def main() -> int:
     round_trip = host_round_trips()
 
     lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
-                   "flash_attention": flash_phase(dev, rng)}
+                   **flash_phase(dev, rng)}
     work = os.path.join(HERE, "build", "chip_smoke_wh")
     launches = {**main_path(args.rows, work), **lm_launches}
 
+    print("launches by route and path: " + json.dumps(
+        {r: launches.get(r, 0) for r in ROUTES}), flush=True)
+    print("routes: " + json.dumps({
+        "flash_attention.simt": {**checked["timed"]["flash_attention.simt"],
+                                 "source": SIMT_SOURCE}}), flush=True)
     kernels = []
     for k in PATH_KERNELS + LM_KERNELS:
         row = checked["timed"][k]

@@ -11,10 +11,16 @@
 // and stops at the diagonal when causal (the TPU grid visits the masked
 // tiles too; they add nothing).
 //
+// This is the CUDA-core route: the wrapper
+// (kernels/flash_attention/ops.py:route) sends it float32 inputs (TF32 on
+// the tensor cores would miss the float32 sweep's atol 3e-5), d not a
+// multiple of 16 (d = 8 in the sweep) and bf16 with d > 128; bf16 with d a
+// multiple of 16 up to 128 goes to the tensor-core kernel in
+// flash_attention_wgmma.cu.
+//
 // Bound on this card: operations (2 * 2 * S^2 * d per head, halved when
-// causal, against a few bytes per row); the tensor cores' bf16 rate is the
-// card's peak for that work.  This first version computes on the CUDA
-// cores in float32: 256 threads each hold a 4x4 register tile of the 64x64
+// causal, against a few bytes per row).  It computes on the CUDA cores in
+// float32: 256 threads each hold a 4x4 register tile of the 64x64
 // scores and a 4x(4*KD) tile of the 64xd accumulator (lm_common.cuh), read
 // float4s from q and k tiles stored transposed, and reduce each row's max
 // and sum over 4 neighbouring lanes by shuffles.  Tiles are the kernel's own (64 x 64);

@@ -15,6 +15,19 @@
 // Bound on this card: bytes (8 read per row, 8 written per group).  The
 // privatized copy keeps the per-row atomics out of device memory.
 //
+// hash_group_minmax has two paths; the wrapper picks one by the row count
+// (kernels/hash_group/ops.py: ONE_BLOCK_ROWS, with the measurement that
+// set it) and passes it here:
+//   one block (n <= ONE_BLOCK_ROWS and G <= 6,144, the SQL path's 1,024-row
+//     morsels): a single launch of one 1,024-thread block takes the order
+//     keys of all G groups in shared memory, scatters every row with
+//     shared-memory atomicMin/atomicMax, and writes the decoded floats
+//     straight to the outputs: no initialising or decoding launch, no
+//     global atomics, nothing carried from one call to the next;
+//   many blocks: three launches (initialise the order keys in the outputs,
+//     the privatized scatter over up to 528 blocks folded in with global
+//     atomics, decode), or global atomics per row when G > 6,144.
+//
 // Numbers: counts are exact (float32 holds every integer below 2^24, which
 // the executor's gate keeps the row count under).  Float atomics add in an
 // order that changes from run to run, so sums of arbitrary floats agree with
@@ -122,6 +135,33 @@ __global__ void minmax_smem(const int32_t* __restrict__ codes,
   }
 }
 
+constexpr int kOneBlockThreads = 1024;
+
+__global__ void __launch_bounds__(kOneBlockThreads)
+minmax_one_block(const int32_t* __restrict__ codes,
+                 const float* __restrict__ vals, int64_t n, int32_t g,
+                 float* __restrict__ mins, float* __restrict__ maxs) {
+  extern __shared__ uint32_t keys[];  // [g mins | g maxs]
+  for (int32_t j = threadIdx.x; j < g; j += blockDim.x) {
+    keys[j] = kKeyPosInf;
+    keys[g + j] = kKeyNegInf;
+  }
+  __syncthreads();
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+    int32_t c = codes[i];
+    if (c >= 0 && c < g) {
+      uint32_t k = order_key(vals[i]);
+      atomicMin(&keys[c], k);
+      atomicMax(&keys[g + c], k);
+    }
+  }
+  __syncthreads();
+  for (int32_t j = threadIdx.x; j < g; j += blockDim.x) {
+    mins[j] = from_order_key(keys[j]);
+    maxs[j] = from_order_key(keys[g + j]);
+  }
+}
+
 __global__ void minmax_global(const int32_t* __restrict__ codes,
                               const float* __restrict__ vals, int64_t n,
                               int32_t g, uint32_t* mins, uint32_t* maxs) {
@@ -175,14 +215,21 @@ REPRO_API int hash_group_launch(const void* codes, const void* vals, int64_t n,
 
 REPRO_API int hash_group_minmax_launch(const void* codes, const void* vals,
                                        int64_t n, int64_t g, void* mins,
-                                       void* maxs, void* stream) {
-  if (g < 1 || g > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+                                       void* maxs, int one_block,
+                                       void* stream) {
+  if (g < 1 || g > INT32_MAX || (one_block && g > kSmemMaxGroups))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const int32_t*>(codes);
   auto v = static_cast<const float*>(vals);
+  int32_t g32 = static_cast<int32_t>(g);
+  if (one_block) {
+    minmax_one_block<<<1, kOneBlockThreads, 2 * g * sizeof(uint32_t), s>>>(
+        c, v, n, g32, static_cast<float*>(mins), static_cast<float*>(maxs));
+    return static_cast<int>(cudaGetLastError());
+  }
   auto mi = static_cast<uint32_t*>(mins);
   auto ma = static_cast<uint32_t*>(maxs);
-  int32_t g32 = static_cast<int32_t>(g);
   int fill_blocks = repro::grid_for(g, 1, repro::kSms);
   minmax_init<<<fill_blocks, repro::kThreads, 0, s>>>(mi, ma, g32);
   if (g <= kSmemMaxGroups) {

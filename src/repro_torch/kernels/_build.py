@@ -41,8 +41,8 @@ _SIGNATURES = {
     "key_lookup_launch": [_P, _I64, _P, _I64, _P, _P],
     # codes, vals, n, g, sums, counts, stream
     "hash_group_launch": [_P, _P, _I64, _I64, _P, _P, _P],
-    # codes, vals, n, g, mins, maxs, stream
-    "hash_group_minmax_launch": [_P, _P, _I64, _I64, _P, _P, _P],
+    # codes, vals, n, g, mins, maxs, one_block, stream
+    "hash_group_minmax_launch": [_P, _P, _I64, _I64, _P, _P, _I32, _P],
     # cols (host array of k device pointers), k, n, partitions, out, stream
     "hash_partition_launch": [_P, _I32, _I64, _I32, _P, _P],
     # h1, h2, bits, words, num_hashes, mask, n, out, stream
@@ -55,6 +55,10 @@ _SIGNATURES = {
     # q, k, v, out, batch*heads, seq, head_dim, scale, causal, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
                                ctypes.c_float, _I32, _I32, _P],
+    # q, k, v, out, batch*heads, seq, head_dim, scale, causal, stream
+    # (bfloat16, head_dim a multiple of 16 up to 128)
+    "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
+                                     ctypes.c_float, _I32, _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,8 +1,18 @@
 """Public wrapper for flash attention (registry-dispatched).
 
-The CUDA kernel is ``csrc/flash_attention.cu``; it replaces the TPU kernel
-``flash_attention_pallas`` of the JAX package.  As there, no model path
-calls it: this is its own entry point.
+Two hand-written CUDA kernels replace the TPU kernel
+``flash_attention_pallas`` of the JAX package; :func:`route` picks one by
+dtype and head dim:
+
+* ``wgmma``: ``csrc/flash_attention_wgmma.cu``, bfloat16 on the tensor
+  cores, for d a multiple of 16 up to 128;
+* ``simt``: ``csrc/flash_attention.cu``, float32 arithmetic on the CUDA
+  cores, for float32 inputs (TF32 would miss the float32 tolerance), other
+  head dims and bfloat16 with d > 128.
+
+Each launch adds one to ``flash_attention`` and to
+``flash_attention.<route>``.  As in the JAX package, no model path calls
+it: this is its own entry point.
 """
 from __future__ import annotations
 
@@ -15,7 +25,17 @@ from ..registry import count_launch, register, resolve
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256  # the q, k and v tiles of 64 rows fit shared memory
+WGMMA_MAX_HEAD_DIM = 128  # the tensor-core kernel's 64- or 128-wide tiles
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes (dtype, head dim d) on the card: ``wgmma``
+    for bfloat16 with d a multiple of 16 up to 128, else ``simt``."""
+    if (dtype == torch.bfloat16 and d % 16 == 0
+            and 16 <= d <= WGMMA_MAX_HEAD_DIM):
+        return "wgmma"
+    return "simt"
 
 
 @register("flash_attention", "cuda")
@@ -23,7 +43,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
                          block_k: int = 128):
     """q/k/v: (B, H, S, d), one dtype -> (B, H, S, d) in that dtype.
     ``block_q``/``block_k`` are the JAX kernel's tiles: kept for the API
-    and its check that they divide S (the CUDA kernel tiles by 64 itself).
+    and its check that they divide S (the CUDA kernels pick their own).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -45,13 +65,29 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
         raise ValueError(f"flash_attention kernel takes d <= {MAX_HEAD_DIM} "
                          f"in float32 or bfloat16; got d={d}, "
                          f"{q.dtype}")
+    kind = route(q.dtype, d)
+    out = launch_route(q, k, v, causal, kind)
+    count_launch("flash_attention")
+    count_launch(f"flash_attention.{kind}")
+    return out
+
+
+def launch_route(q, k, v, causal: bool, kind: str):
+    """Launch one route's kernel (``wgmma`` or ``simt``) on checked CUDA
+    tensors (B, H, S, d); returns the output.  Counts nothing: the wrapper
+    counts."""
+    B, H, S, d = q.shape
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    err = _build.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, S, d,
-        1.0 / math.sqrt(d), int(causal), DTYPES[q.dtype], _build.stream(out))
-    _build.check(err, "flash_attention")
-    count_launch("flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
+            S, d, 1.0 / math.sqrt(d), int(causal))
+    lib = _build.library()
+    if kind == "wgmma":
+        err = lib.flash_attention_wgmma_launch(*args, _build.stream(out))
+    else:
+        err = lib.flash_attention_launch(*args, DTYPES[q.dtype],
+                                         _build.stream(out))
+    _build.check(err, f"flash_attention ({kind})")
     return out
 
 

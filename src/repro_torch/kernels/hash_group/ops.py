@@ -11,6 +11,22 @@ from .. import _build
 from ..registry import count_launch, register, resolve
 from .ref import hash_group_minmax_ref, hash_group_ref
 
+# hash_group_minmax: up to this many rows one block takes the whole call in
+# one launch; above it, the three-launch multi-block path
+# (csrc/hash_group.cu).  Set from chip_smoke.py's timing of both paths
+# around it (PERF.md).
+ONE_BLOCK_ROWS = 16384
+# groups whose order keys fit the 48 KB of shared memory (2 x 4 bytes each)
+SMEM_MAX_GROUPS = 6144
+
+
+def minmax_path(n: int, num_groups: int) -> str:
+    """``one_block`` or ``multi_block``: the kernel path for n rows in
+    ``num_groups`` groups."""
+    if n <= ONE_BLOCK_ROWS and num_groups <= SMEM_MAX_GROUPS:
+        return "one_block"
+    return "multi_block"
+
 
 def _prepare(codes, values, num_groups: int):
     if codes.dim() != 1 or codes.shape != values.shape:
@@ -49,13 +65,23 @@ def hash_group_minmax_cuda(codes, values, num_groups: int):
     n = codes.shape[0]
     if not _build.takes_kernel(codes, values) or n == 0 or num_groups == 0:
         return hash_group_minmax_ref(codes, values, num_groups)
+    path = minmax_path(n, num_groups)
+    out = launch_minmax(codes, values, num_groups, path)
+    count_launch("hash_group_minmax")
+    count_launch(f"hash_group_minmax.{path}")
+    return out[0], out[1]
+
+
+def launch_minmax(codes, values, num_groups: int, path: str):
+    """Launch one path of the MIN/MAX kernel on prepared CUDA tensors;
+    returns (2, G) float32.  Counts nothing: the wrapper counts."""
     out = torch.empty(2, num_groups, dtype=torch.float32, device=codes.device)
     err = _build.library().hash_group_minmax_launch(
-        codes.data_ptr(), values.data_ptr(), n, num_groups,
-        out[0].data_ptr(), out[1].data_ptr(), _build.stream(out))
-    _build.check(err, "hash_group_minmax")
-    count_launch("hash_group_minmax")
-    return out[0], out[1]
+        codes.data_ptr(), values.data_ptr(), codes.shape[0], num_groups,
+        out[0].data_ptr(), out[1].data_ptr(), int(path == "one_block"),
+        _build.stream(out))
+    _build.check(err, f"hash_group_minmax ({path})")
+    return out
 
 
 register("hash_group", "ref", hash_group_ref)

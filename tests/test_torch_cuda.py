@@ -315,3 +315,119 @@ def test_cuda_mamba2_prefill_and_decode(cuda):
     np.testing.assert_allclose(_np(logits.float()),
                                _np(with_kernel[:, -1].float()),
                                atol=0.15, rtol=0.15)
+
+
+# ---------------------------------------------------------------------------
+# The two flash_attention routes and the two hash_group_minmax paths.
+# Tensor-core route (bfloat16, d a multiple of 16 up to 128; 48 and 96 pad
+# to the kernel's 64- and 128-column tiles): against the plain version run
+# on the card, at the bfloat16 tolerance above (atol 1e-4 + 2^-7 |exp|,
+# never beyond 3e-2).  MIN/MAX: bit-exact, -0.0 below +0.0 (order keys).
+# ---------------------------------------------------------------------------
+WGMMA_DIMS = [16, 32, 48, 64, 96, 128]
+WGMMA_LENGTHS = [64, 96, 128, 256, 4096]
+
+
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+@pytest.mark.parametrize("S", WGMMA_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_wgmma(cuda, d, S, causal):
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                         route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    assert route(torch.bfloat16, d) == "wgmma"
+    shape = (1, 2, S, d) if S == 4096 else (2, 3, S, d)
+    q, k, v = (t.to(cuda) for t in flash_inputs(shape, torch.bfloat16))
+    before = registry.launch_counts().get("flash_attention.wgmma", 0)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert registry.launch_counts()["flash_attention.wgmma"] == before + 1
+    exp = attention_ref(q, k, v, causal=causal).float()
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    err = (got.float() - exp).abs()
+    assert float(err.max()) <= 3e-2
+    np.testing.assert_allclose(_np(got.float()), _np(exp), atol=1e-4,
+                               rtol=2 ** -7)
+
+
+def test_cuda_flash_attention_route_counters(cuda):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    def run(dtype, d):
+        q, k, v = (t.to(cuda) for t in flash_inputs((1, 2, 128, d), dtype))
+        flash_attention(q, k, v)
+
+    before = registry.launch_counts()
+    run(torch.bfloat16, 64)
+    run(torch.float32, 64)
+    run(torch.bfloat16, 256)
+    run(torch.bfloat16, 8)
+    after = registry.launch_counts()
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in
+             ("flash_attention", "flash_attention.wgmma",
+              "flash_attention.simt")}
+    assert moved == {"flash_attention": 4, "flash_attention.wgmma": 1,
+                     "flash_attention.simt": 3}
+
+
+def _bits(t):
+    return _np(t).view(np.int32)
+
+
+@pytest.mark.parametrize("g", [1, 7, 640, 6144])
+def test_cuda_minmax_one_launch_bit_exact(cuda, g):
+    """At the SQL path's 1,024-row morsels: one launch, the plain version's
+    bits, masked rows and +-inf among the values."""
+    from repro_torch.kernels.hash_group.ops import minmax_path
+
+    rng = np.random.default_rng(g + 1)
+    codes = rng.integers(-1, g, 1024).astype(np.int32)
+    vals = rng.normal(size=1024).astype(np.float32)
+    vals[rng.integers(0, 1024, 8)] = np.inf
+    vals[rng.integers(0, 1024, 8)] = -np.inf
+    assert minmax_path(1024, g) == "one_block"
+    before = registry.launch_counts()
+    m, x = hash_group_minmax_cuda(_t(codes, cuda), _t(vals, cuda), g)
+    after = registry.launch_counts()
+    em, ex = hash_group_minmax_ref(_t(codes), _t(vals), g)
+    assert np.array_equal(_bits(m), _bits(em))
+    assert np.array_equal(_bits(x), _bits(ex))
+    for name, step in (("hash_group_minmax", 1),
+                       ("hash_group_minmax.one_block", 1),
+                       ("hash_group_minmax.multi_block", 0)):
+        assert after.get(name, 0) == before.get(name, 0) + step, name
+
+
+@pytest.mark.parametrize("path", ["one_block", "multi_block"])
+def test_cuda_minmax_signed_zero_and_empty_groups(cuda, path):
+    """Group 0 holds -0.0 and +0.0 (min -0.0, max +0.0 whatever the order),
+    group 1 nothing (+inf / -inf), group 2 only -inf, group 3 only +inf."""
+    from repro_torch.kernels.hash_group.ops import _prepare, launch_minmax
+
+    codes = np.array([0, 0, 0, 0, 2, 3, -1, -1], np.int32)
+    vals = np.array([0.0, -0.0, 0.0, -0.0, -np.inf, np.inf, 5.0, -5.0],
+                    np.float32)
+    for order in (slice(None), slice(None, None, -1)):
+        c, v = _prepare(_t(codes[order], cuda), _t(vals[order], cuda), 4)
+        out = _np(launch_minmax(c, v, 4, path))
+        want_min = np.array([-0.0, np.inf, -np.inf, np.inf], np.float32)
+        want_max = np.array([0.0, -np.inf, -np.inf, np.inf], np.float32)
+        assert np.array_equal(out[0].view(np.int32), want_min.view(np.int32))
+        assert np.array_equal(out[1].view(np.int32), want_max.view(np.int32))
+
+
+def test_cuda_minmax_paths_at_the_limit(cuda):
+    from repro_torch.kernels.hash_group.ops import ONE_BLOCK_ROWS
+
+    rng = np.random.default_rng(9)
+    for n, path in ((ONE_BLOCK_ROWS, "one_block"),
+                    (ONE_BLOCK_ROWS + 1, "multi_block")):
+        codes = rng.integers(-1, 7, n).astype(np.int32)
+        vals = rng.normal(size=n).astype(np.float32)
+        key = f"hash_group_minmax.{path}"
+        before = registry.launch_counts().get(key, 0)
+        m, x = hash_group_minmax_cuda(_t(codes, cuda), _t(vals, cuda), 7)
+        assert registry.launch_counts()[key] == before + 1
+        em, ex = hash_group_minmax_ref(_t(codes), _t(vals), 7)
+        assert np.array_equal(_bits(m), _bits(em))
+        assert np.array_equal(_bits(x), _bits(ex))

@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the CUDA kernels from src/repro_torch/csrc into build/; print
      the tensor-core flash_attention kernel's registers, shared memory and
      spills (ptxas -v) and the HGMMA instructions in its SASS (cuobjdump),
-     which must be more than 0;
+     which must be more than 0; the same for ssd_scan's four passes, with
+     the HMMA (mma.sync) instructions of the three that multiply;
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (1024-row morsels and 8192-row stripes, SSB's
      dictionaries and runtime bloom filters, few to thousands of groups,
@@ -22,7 +23,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      inputs; float32 on the CUDA cores);
   4. the LM serving path: mamba2-130m at full width and depth, random bf16
      weights from --seed; one prefill_32k step on 2 x 32,768 tokens (the
-     batch of 32 cut to 2) that must launch ssd_scan once per layer, then
+     batch of 32 cut to 2) that must launch ssd_scan once per layer (each
+     of its four passes once per call, counted where it is launched), then
      128 sequences decoded through make_serve_step (a 256-token prompt
      token by token, then 32 greedy tokens); prints tokens/s, ms a step,
      peak memory and launches; then, outside the counted window, holds the
@@ -48,7 +50,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 ssd_scan and flash_attention are checked and timed in phase 3 beside the
 SQL kernels (their sweeps from the JAX package's tests, the path shapes,
-and chunk 64 against 256).
+and chunk 64 against 256).  ssd_scan's bound is the tighter of float32 on
+the CUDA cores and its 3xTF32 split on the tensor cores (the products the
+kernel runs); a line of its own gives both bounds, each pass's time (CUDA
+events, each pass launched alone) and the bytes one call allocates
+(torch.cuda.memory_allocated).
 """
 from __future__ import annotations
 
@@ -69,6 +75,10 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
+# ssd_scan's products on the tensor cores: each a sum of three TF32 products
+# (hi*hi + hi*lo + lo*hi; csrc/ssd_scan.cu, tests/test_torch_ssd_passes.py)
+SSD_TF32_TERMS = 3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bfloat16 on the tensor cores
 # the default SQL configuration, with the lane count pinned ("auto" follows
 # the host's core count) and the result cache off so every query runs
@@ -185,27 +195,34 @@ def host_round_trips() -> dict:
 
 def tensor_core_report(lib, log: str) -> None:
     """ptxas's registers, shared memory and spills for the tensor-core
-    flash_attention kernel, and the HGMMA (wgmma) instructions in the SASS
-    of each of its instantiations; fails when there are none."""
-    part = log.split("== flash_attention_wgmma.cu", 1)[1].split("\n== ", 1)[0]
-    print("flash_attention_wgmma.cu, ptxas -v:", flush=True)
-    for line in part.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print("  " + line.split("ptxas info    : ", 1)[-1].strip(),
-                  flush=True)
+    kernels, and their tensor-core instructions in the SASS of each
+    instantiation: HGMMA (wgmma) in flash_attention_wgmma.cu, HMMA
+    (mma.sync) in ssd_scan.cu's chunk_state, bmm and chunk_scan passes;
+    fails when there are none."""
+    for source in ("flash_attention_wgmma.cu", "ssd_scan.cu"):
+        part = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
+        print(f"{source}, ptxas -v:", flush=True)
+        for line in part.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print("  " + line.split("ptxas info    : ", 1)[-1].strip(),
+                      flush=True)
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         cuda_home, "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    counts = {}
-    for fn in sass.split("Function : ")[1:]:
-        name, body = fn.split("\n", 1)
-        if "flash_wgmma_kernel" in name:
-            counts[name.strip()] = sum("HGMMA" in ln
-                                       for ln in body.splitlines())
-    print(f"  HGMMA instructions in the SASS: {counts}", flush=True)
-    assert counts and all(c > 0 for c in counts.values()), counts
+    for kernels, op in ((("flash_wgmma_kernel",), "HGMMA"),
+                        (("chunk_state_kernel", "bmm_kernel",
+                          "chunk_scan_kernel"), "HMMA")):
+        counts = {}
+        for fn in sass.split("Function : ")[1:]:
+            name, body = fn.split("\n", 1)
+            if any(k in name for k in kernels):
+                counts[name.strip()] = sum(f" {op}." in ln
+                                           for ln in body.splitlines())
+        print(f"  {op} instructions in the SASS: {counts}", flush=True)
+        assert len(counts) >= 2 * len(kernels) and \
+            all(c > 0 for c in counts.values()), counts
 
 
 def bound_ms(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S) -> tuple:
@@ -234,7 +251,7 @@ def check_kernels(dev, rng) -> dict:
         return torch.as_tensor(a, device=dev)
 
     def record(name, shape, reps, kern, plain, lib, nbytes, ops, main,
-               peak=FP32_OPS_PER_S):
+               peak=FP32_OPS_PER_S, key=None):
         ms, pms = time_ms(kern, reps), time_ms(plain, reps)
         lms = time_ms(lib, reps) if lib is not None else None
         bms, by = bound_ms(nbytes, ops, peak)
@@ -243,7 +260,9 @@ def check_kernels(dev, rng) -> dict:
         print(f"  {name:18s} {shape:22s} kernel {ms:.4f} ms  plain "
               f"{pms:.4f} ms  library {'-' if lms is None else f'{lms:.4f}'}"
               f" ms  bound {bms:.6f} ms ({by})", flush=True)
-        if main:
+        if key is not None:
+            timed[key] = row
+        elif main:
             timed[name] = row
         else:
             timed.setdefault(name + "@large", row)
@@ -467,11 +486,15 @@ SSD_SWEEP = [(1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16),
              (1, 128, 4, 32, 16, 32), (2, 96, 2, 8, 8, 48)]
 FLASH_SWEEP = [(1, 1, 64, 16), (2, 3, 128, 32), (2, 2, 256, 64),
                (1, 4, 96, 8)]
-# path shapes: mamba2-130m's heads (B, H, P, N, chunk) at the lengths below
+# path shapes: mamba2-130m's heads (B, H, P, chunk) at the lengths below
 # (decay 6: its strongest decays; the last, the prefill's own length), and
 # zamba2-1.2b's shared attention (B, H, S, d) in bfloat16
-SSD_PATH = (2, 24, 64, 128, 256)
-SSD_LENGTHS = ((4096, 6.0, False), (4096, 0.2, True), (32768, 0.2, False))
+SSD_PATH = (2, 24, 64, 256)  # B, H, P, chunk
+# (S, N, decay, timed row): mamba2-130m's d_state 128, and 64 (zamba2-1.2b's)
+SSD_LENGTHS = ((4096, 128, 6.0, None), (4096, 128, 0.2, "ssd_scan"),
+               (32768, 128, 0.2, "ssd_scan@large"), (4096, 64, 6.0, None),
+               (4096, 64, 0.2, "ssd_scan@N64"),
+               (32768, 64, 0.2, "ssd_scan@N64 large"))
 FLASH_PATH = (2, 32, 4096, 64)
 # ssd_scan: the JAX sweep's tolerance (float32 sums in another order)
 SSD_TOL = {"atol": 5e-5, "rtol": 1e-3}
@@ -504,20 +527,28 @@ def ssd_arrays(t, rng, B, S, H, P, N, decay=0.2):
 
 def ssd_cost(B, S, H, P, N, Q) -> tuple:
     """(bytes, operations) of one scan: each input read once, y written
-    once; per chunk and head the causal work the function needs: the
-    Q(Q+1)/2 pairs j <= i of C_i.B_j (2N each) and of L x (2P each), then
+    once; the causal work the function needs: per chunk, the Q(Q+1)/2
+    pairs j <= i of C_i.B_j (2N each), once, since B and C are shared by
+    the heads; per chunk and head, those pairs of L x (2P each), then
     C state^T and the state update (2QNP each).  The JAX kernel computes
-    the full Q x Q square, about 1.6x this at mamba2-130m's shape."""
+    the full Q x Q square for every head."""
     nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N)
-    ops = B * H * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    nc = S // Q
+    ops = B * nc * Q * (Q + 1) * N + \
+        B * H * nc * (Q * (Q + 1) * P + 4 * Q * N * P)
     return nbytes, ops
 
 
 def check_ssd_scan(t, rng, err, record):
     """Against the plain version on the sweep, at the path's head shape
-    (mamba2-130m: H 24, P 64, N 128, chunk 256) with weak and strong
-    decays, chunk 64 against 256, and at the prefill's own length."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    (mamba2-130m: H 24, P 64, N 128, chunk 256; and N 64) with weak and
+    strong decays, chunk 64 against 256, and at the prefill's own length.
+    The timed rows' bound is the tighter of float32 on the CUDA cores and
+    the 3xTF32 split on the tensor cores; a line each gives both bounds,
+    each pass's time and the bytes a call allocates."""
+    from repro_torch.kernels.ssd_scan.ops import (PASSES, buffers,
+                                                  launch_pass, scratch_bytes,
+                                                  ssd_scan_cuda)
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     def compare(label, got, exp):
@@ -531,20 +562,45 @@ def check_ssd_scan(t, rng, err, record):
         a = ssd_arrays(t, rng, B, S, H, P, N)
         compare(f"sweep {(B, S, H, P, N, Q)}", ssd_scan_cuda(*a, chunk=Q)[0],
                 ssd_scan_ref(*a, chunk=Q))
-    B, H, P, N, Q = SSD_PATH
-    for S, decay, main in SSD_LENGTHS:
+    split_peak = TF32_OPS_PER_S / SSD_TF32_TERMS
+    B, H, P, Q = SSD_PATH
+    for S, N, decay, key in SSD_LENGTHS:
         a = ssd_arrays(t, rng, B, S, H, P, N, decay)
         y = ssd_scan_cuda(*a, chunk=Q)[0]
-        assert torch.isfinite(y).all(), f"ssd_scan S={S}: not finite"
-        compare(f"S={S} decay {decay}", y, ssd_scan_ref(*a, chunk=Q))
-        compare(f"S={S} decay {decay} chunk 64 vs 256",
+        assert torch.isfinite(y).all(), f"ssd_scan S={S} N={N}: not finite"
+        compare(f"S={S} N={N} decay {decay}", y, ssd_scan_ref(*a, chunk=Q))
+        compare(f"S={S} N={N} decay {decay} chunk 64 vs 256",
                 ssd_scan_cuda(*a, chunk=64)[0], y)
-        if decay == 0.2:
-            record("ssd_scan", f"B={B} S={S} H={H} P={P} N={N} Q={Q}",
-                   10 if main else 3,
-                   lambda: ssd_scan_cuda(*a, chunk=Q),
-                   lambda: ssd_scan_ref(*a, chunk=Q), None,
-                   *ssd_cost(B, S, H, P, N, Q), main)
+        if key is None:
+            continue
+        reps = 10 if S <= 4096 else 5
+        nbytes, ops = ssd_cost(B, S, H, P, N, Q)
+        row = record("ssd_scan", f"B={B} S={S} H={H} P={P} N={N} Q={Q}",
+                     reps, lambda: ssd_scan_cuda(*a, chunk=Q),
+                     lambda: ssd_scan_ref(*a, chunk=Q), None, nbytes, ops,
+                     key == "ssd_scan", peak=max(FP32_OPS_PER_S, split_peak),
+                     key=key)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = ssd_scan_cuda(*a, chunk=Q)[0]
+        torch.cuda.synchronize()
+        allocated = torch.cuda.max_memory_allocated() - base
+        del y
+        bufs = buffers(a[0], a[2], Q)
+        passes = {name: time_ms(
+            lambda name=name: launch_pass(name, *a, bufs, Q), reps)
+            for name in PASSES}
+        del bufs
+        scratch = scratch_bytes(B, S, H, P, N, Q)
+        assert allocated >= scratch, (allocated, scratch)
+        print(f"  ssd_scan           {key}: passes " + ", ".join(
+            f"{k} {v:.4f}" for k, v in passes.items()) + " ms; bounds: "
+            f"float32 {bound_ms(nbytes, ops)[0]:.4f} ms, {SSD_TF32_TERMS}xTF32"
+            f" {bound_ms(nbytes, ops, split_peak)[0]:.4f} ms; "
+            f"{ops / row['ms'] / 1e9:.1f} TFLOP/s of needed work; a call "
+            f"allocates {allocated:,} bytes (scratch {scratch:,} beside y)",
+            flush=True)
 
 
 def check_flash_attention(dev, rng, err, record):
@@ -840,6 +896,7 @@ def serve_lm(dev, seed: int) -> int:
     Returns ssd_scan's launches."""
     from repro_torch.configs.base import LM_SHAPES, get_config
     from repro_torch.kernels import registry
+    from repro_torch.kernels.ssd_scan.ops import PASSES as SSD_PASSES
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
@@ -877,10 +934,13 @@ def serve_lm(dev, seed: int) -> int:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated()
-    prefill_launches = registry.launch_counts().get("ssd_scan", 0)
+    counts = registry.launch_counts()
+    prefill_launches = counts.get("ssd_scan", 0)
     assert prefill_launches == cfg.num_layers, \
         f"prefill launched ssd_scan {prefill_launches} times, want " \
         f"{cfg.num_layers}"
+    pass_launches = {p: counts.get(f"ssd_scan.{p}", 0) for p in SSD_PASSES}
+    assert set(pass_launches.values()) == {prefill_launches}, pass_launches
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -902,7 +962,9 @@ def serve_lm(dev, seed: int) -> int:
     print(f"prefill {PREFILL_BATCH} x {shape.seq_len}: {prefill_s:.3f} s, "
           f"{PREFILL_BATCH * shape.seq_len / prefill_s:,.0f} tokens/s, peak "
           f"{prefill_peak / 2**30:.2f} GiB, ssd_scan launches "
-          f"{prefill_launches}", flush=True)
+          f"{prefill_launches} (wrapper calls), kernel launches by pass "
+          f"{pass_launches}: {sum(pass_launches.values()) / prefill_launches}"
+          f" a call", flush=True)
     print(f"decode {DECODE_BATCH} sequences x {steps} steps: {decode_s:.3f} "
           f"s, {decode_s / steps * 1e3:.2f} ms a step, "
           f"{DECODE_BATCH * steps / decode_s:,.0f} tokens/s, peak "
@@ -1028,6 +1090,9 @@ def main() -> int:
             "shape": row["shape"], "host_call_ms": round_trip.get(k),
             "large": checked["timed"].get(k + "@large"),
         })
+        if k == "ssd_scan":
+            kernels[-1]["n64"] = [checked["timed"][r] for r in
+                                  ("ssd_scan@N64", "ssd_scan@N64 large")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

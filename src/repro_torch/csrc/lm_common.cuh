@@ -1,9 +1,10 @@
 // Shared by the LM kernels (ssd_scan, flash_attention): the floating types
 // they take (float32, bfloat16), converted to and from float32 by the
-// intrinsics, and the 64 x 64 register-tiled products both compute on the
-// CUDA cores: 16 x 16 threads, each holding a 4 x 4 tile of the product and
-// reading float4s from tiles stored transposed ([col][row], rows padded to
-// kLd so the float4 reads stay aligned and spread over the banks).
+// intrinsics; and the 64 x 64 register-tiled products that flash_attention's
+// CUDA-core route computes: 16 x 16 threads, each holding a 4 x 4 tile of
+// the product and reading float4s from tiles stored transposed ([col][row],
+// rows padded to kLd so the float4 reads stay aligned and spread over the
+// banks).
 #pragma once
 
 #include <cuda_bf16.h>

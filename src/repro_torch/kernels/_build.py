@@ -48,10 +48,19 @@ _SIGNATURES = {
     # h1, h2, bits, words, num_hashes, mask, n, out, stream
     "bloom_probe_launch": [_P, _P, _P, _I64, _I32, ctypes.c_uint32, _I64,
                            _P, _P],
-    # x, dA, B, C, y, batch, seq, heads, head_dim, d_state, chunk, dtype,
-    # stream
-    "ssd_scan_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                        _I32, _I32, _P],
+    # x, dA, B, cum, states, batch, seq, heads, head_dim, d_state, chunk,
+    # dtype, stream
+    "ssd_chunk_state_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                               _I32, _I32, _I32, _P],
+    # cum, states, batch, seq, heads, head_dim, d_state, chunk, stream
+    "ssd_state_pass_launch": [_P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                              _P],
+    # B, C, cb, batch, seq, d_state, chunk, dtype, stream
+    "ssd_bmm_launch": [_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    # x, C, cum, states, cb, y, batch, seq, heads, head_dim, d_state, chunk,
+    # dtype, stream
+    "ssd_chunk_scan_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                              _I32, _I32, _I32, _P],
     # q, k, v, out, batch*heads, seq, head_dim, scale, causal, dtype, stream
     "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
                                ctypes.c_float, _I32, _I32, _P],

@@ -431,3 +431,105 @@ def test_cuda_minmax_paths_at_the_limit(cuda):
         em, ex = hash_group_minmax_ref(_t(codes), _t(vals), 7)
         assert np.array_equal(_bits(m), _bits(em))
         assert np.array_equal(_bits(x), _bits(ex))
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan's four chunk-parallel passes (csrc/ssd_scan.cu).  Whole scans
+# against the plain version at the tolerance above (atol 5e-5, rtol 1e-3);
+# then each pass launched on its own through its C entry point, on the
+# emulation's inputs for it (tests/test_torch_ssd_passes.py), against the
+# emulation's output of it, so a failure names the pass.
+# ---------------------------------------------------------------------------
+SSD_KERNEL_CASES = {
+    "zamba2-1.2b heads": ((1, 1024, 64, 64, 64, 256), 0.2, torch.float32),
+    "chunk 1024": ((1, 2048, 4, 64, 128, 1024), 0.2, torch.float32),
+    "one chunk": ((2, 256, 8, 64, 128, 256), 0.2, torch.float32),
+    "three chunks": ((1, 768, 6, 64, 128, 256), 0.2, torch.float32),
+    "decay 6 at path width": ((2, 1024, 24, 64, 128, 256), 6.0,
+                              torch.float32),
+    "bf16 at path width": ((2, 1024, 24, 64, 128, 256), 0.2, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("name", list(SSD_KERNEL_CASES))
+def test_cuda_ssd_scan_shapes(cuda, name):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    (B, S, H, P, N, Q), decay, dtype = SSD_KERNEL_CASES[name]
+    arrs = [_t(a).to(dtype) for a in ssd_inputs(B, S, H, P, N, seed=11,
+                                                decay=decay)]
+    before = registry.launch_counts().get("ssd_scan", 0)
+    got, _ = ssd_scan_cuda(*[a.to(cuda) for a in arrs], chunk=Q)
+    assert registry.launch_counts()["ssd_scan"] == before + 1
+    exp = ssd_scan_ref(*arrs, chunk=Q)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    np.testing.assert_allclose(_np(got), _np(exp), atol=5e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("cfg,decay", [((1, 768, 3, 64, 128, 256), 6.0),
+                                       ((2, 1024, 24, 64, 128, 256), 0.2),
+                                       ((1, 512, 2, 64, 64, 256), 0.2),
+                                       ((2, 96, 2, 8, 8, 48), 0.2),
+                                       ((1, 32, 2, 8, 4, 8), 0.2)])
+def test_cuda_ssd_passes_one_by_one(cuda, cfg, decay):
+    from repro_torch.kernels.ssd_scan.ops import buffers, launch_pass
+    from test_torch_ssd_passes import causal_tiles, emulate_passes
+
+    B, S, H, P, N, Q = cfg
+    cpu = [_t(a) for a in ssd_inputs(B, S, H, P, N, seed=5, decay=decay)]
+    x, dA, Bm, Cm = (a.to(cuda) for a in cpu)
+    emu = emulate_passes(*cpu, Q)
+    bufs = buffers(x, Bm, Q)
+
+    def check(name, got, exp):
+        torch.cuda.synchronize()
+        err = float((got.cpu() - exp).abs().max())
+        assert torch.allclose(got.cpu(), exp, atol=5e-5, rtol=1e-3), \
+            f"pass {name}: max error {err}"
+
+    launch_pass("chunk_state", x, dA, Bm, Cm, bufs, Q)
+    check("chunk_state (cum)", bufs["cum"], emu["cum"])
+    check("chunk_state (states)", bufs["states"], emu["states"])
+    bufs["cum"].copy_(emu["cum"])
+    bufs["states"].copy_(emu["states"])
+    launch_pass("state_pass", x, dA, Bm, Cm, bufs, Q)
+    check("state_pass", bufs["states"], emu["prev"])
+    launch_pass("bmm", x, dA, Bm, Cm, bufs, Q)
+    mask = causal_tiles(Q)
+    check("bmm", bufs["cb"].cpu()[..., mask], emu["cb"][..., mask])
+    bufs["states"].copy_(emu["prev"])
+    bufs["cb"].copy_(emu["cb"])
+    bufs["y"].fill_(float("nan"))
+    launch_pass("chunk_scan", x, dA, Bm, Cm, bufs, Q)
+    check("chunk_scan", bufs["y"], emu["y"])
+
+
+def test_cuda_ssd_scan_one_count_per_call(cuda):
+    """Four launches, one count: the prefill's 24 counts are one call per
+    layer; each pass counts its own launches."""
+    from repro_torch.kernels.ssd_scan.ops import PASSES, ssd_scan
+
+    arrs = [_t(a, cuda) for a in ssd_inputs(1, 512, 4, 64, 128, seed=2)]
+    keys = ["ssd_scan"] + [f"ssd_scan.{p}" for p in PASSES]
+    before = registry.launch_counts()
+    for _ in range(3):
+        ssd_scan(*arrs, chunk=256)
+    after = registry.launch_counts()
+    assert {k: after[k] - before.get(k, 0) for k in keys} == \
+        dict.fromkeys(keys, 3)
+
+
+def test_cuda_ssd_scan_odd_widths(cuda):
+    """Widths off the 16-byte copies (P 5, N 7) and a chunk off the 64-row
+    tiles (Q 40) take the element-wise loads; bf16 with N 12 too."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    for (B, S, H, P, N, Q), dtype in (((2, 120, 3, 5, 7, 40), torch.float32),
+                                      ((1, 200, 2, 20, 12, 100),
+                                       torch.bfloat16)):
+        arrs = [_t(a).to(dtype) for a in ssd_inputs(B, S, H, P, N, seed=4)]
+        got, _ = ssd_scan_cuda(*[a.to(cuda) for a in arrs], chunk=Q)
+        exp = ssd_scan_ref(*arrs, chunk=Q)
+        np.testing.assert_allclose(_np(got), _np(exp), atol=5e-5, rtol=1e-3)

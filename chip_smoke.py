@@ -5,10 +5,11 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi); fails without CUDA/sm_90;
   2. build the CUDA kernels from src/repro_torch/csrc into build/; print
-     the tensor-core flash_attention kernel's registers, shared memory and
-     spills (ptxas -v) and the HGMMA instructions in its SASS (cuobjdump),
-     which must be more than 0; the same for ssd_scan's four passes, with
-     the HMMA (mma.sync) instructions of the three that multiply;
+     the two tensor-core flash_attention kernels' registers, shared memory
+     and spills (ptxas -v; bfloat16 and float32 in three TF32 terms) and
+     the HGMMA instructions in their SASS (cuobjdump), which must be more
+     than 0; the same for ssd_scan's four passes, with the HMMA (mma.sync)
+     instructions of the three that multiply;
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (1024-row morsels and 8192-row stripes, SSB's
      dictionaries and runtime bloom filters, few to thousands of groups,
@@ -18,9 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      it) and the bound; hash_partition is also held against the numpy host
      path and bloom_probe against BloomFilter.might_contain, bit-exact;
      hash_group_minmax's two paths are timed against each other at its
-     one-block limit, and flash_attention's two routes at the path shape
+     one-block limit, and flash_attention's three routes at the path shape
      (bfloat16 on the tensor cores beside the CUDA-core kernel on the same
-     inputs; float32 on the CUDA cores);
+     inputs; float32 on the tensor cores in three TF32 terms beside the
+     CUDA-core kernel, each float32 check counted on the tf32x3 route);
   4. the LM serving path: mamba2-130m at full width and depth, random bf16
      weights from --seed; one prefill_32k step on 2 x 32,768 tokens (the
      batch of 32 cut to 2) that must launch ssd_scan once per layer (each
@@ -54,7 +56,8 @@ and chunk 64 against 256).  ssd_scan's bound is the tighter of float32 on
 the CUDA cores and its 3xTF32 split on the tensor cores (the products the
 kernel runs); a line of its own gives both bounds, each pass's time (CUDA
 events, each pass launched alone) and the bytes one call allocates
-(torch.cuda.memory_allocated).
+(torch.cuda.memory_allocated).  flash_attention's float32 route gets both
+bounds the same way.
 """
 from __future__ import annotations
 
@@ -76,9 +79,11 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores
-# ssd_scan's products on the tensor cores: each a sum of three TF32 products
-# (hi*hi + hi*lo + lo*hi; csrc/ssd_scan.cu, tests/test_torch_ssd_passes.py)
-SSD_TF32_TERMS = 3
+# ssd_scan's products and those of flash_attention's float32 route on the
+# tensor cores: each a sum of three TF32 products (hi*hi + hi*lo + lo*hi;
+# csrc/ssd_scan.cu, csrc/flash_attention_tf32.cu; emulated in
+# tests/test_torch_ssd_passes.py and tests/test_torch_flash_tf32.py)
+TF32_TERMS = 3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bfloat16 on the tensor cores
 # the default SQL configuration, with the lane count pinned ("auto" follows
 # the host's core count) and the result cache off so every query runs
@@ -121,9 +126,14 @@ SOURCES = {
 }
 # flash_attention's routes (kernels/flash_attention/ops.py:route) and
 # hash_group_minmax's paths (ops.py:minmax_path), each with its own count
-ROUTES = ("flash_attention.wgmma", "flash_attention.simt",
-          "hash_group_minmax.one_block", "hash_group_minmax.multi_block")
-SIMT_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_ROUTES = ("flash_attention.wgmma", "flash_attention.tf32x3",
+                "flash_attention.simt")
+MINMAX_PATHS = ("hash_group_minmax.one_block", "hash_group_minmax.multi_block")
+ROUTES = FLASH_ROUTES + MINMAX_PATHS
+ROUTE_SOURCES = {
+    "flash_attention.tf32x3": "src/repro_torch/csrc/flash_attention_tf32.cu",
+    "flash_attention.simt": "src/repro_torch/csrc/flash_attention.cu",
+}
 
 
 def card_line() -> str:
@@ -196,10 +206,11 @@ def host_round_trips() -> dict:
 def tensor_core_report(lib, log: str) -> None:
     """ptxas's registers, shared memory and spills for the tensor-core
     kernels, and their tensor-core instructions in the SASS of each
-    instantiation: HGMMA (wgmma) in flash_attention_wgmma.cu, HMMA
-    (mma.sync) in ssd_scan.cu's chunk_state, bmm and chunk_scan passes;
-    fails when there are none."""
-    for source in ("flash_attention_wgmma.cu", "ssd_scan.cu"):
+    instantiation: HGMMA (wgmma) in flash_attention_wgmma.cu and
+    flash_attention_tf32.cu, HMMA (mma.sync) in ssd_scan.cu's chunk_state,
+    bmm and chunk_scan passes; fails when there are none."""
+    for source in ("flash_attention_wgmma.cu", "flash_attention_tf32.cu",
+                   "ssd_scan.cu"):
         part = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
         print(f"{source}, ptxas -v:", flush=True)
         for line in part.splitlines():
@@ -211,7 +222,8 @@ def tensor_core_report(lib, log: str) -> None:
         cuda_home, "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    for kernels, op in ((("flash_wgmma_kernel",), "HGMMA"),
+    for kernels, op in ((("flash_wgmma_kernel", "flash_tf32_kernel"),
+                         "HGMMA"),
                         (("chunk_state_kernel", "bmm_kernel",
                           "chunk_scan_kernel"), "HMMA")):
         counts = {}
@@ -397,7 +409,8 @@ def check_minmax_paths(t, rng) -> None:
             before = registry.launch_counts()
             hash_group_minmax_cuda(codes, vals, 7)
             after = registry.launch_counts()
-            moved = {k: after.get(k, 0) - before.get(k, 0) for k in ROUTES[2:]}
+            moved = {k: after.get(k, 0) - before.get(k, 0)
+                     for k in MINMAX_PATHS}
             assert moved == {"hash_group_minmax.one_block": 1,
                              "hash_group_minmax.multi_block": 0}, moved
 
@@ -562,7 +575,7 @@ def check_ssd_scan(t, rng, err, record):
         a = ssd_arrays(t, rng, B, S, H, P, N)
         compare(f"sweep {(B, S, H, P, N, Q)}", ssd_scan_cuda(*a, chunk=Q)[0],
                 ssd_scan_ref(*a, chunk=Q))
-    split_peak = TF32_OPS_PER_S / SSD_TF32_TERMS
+    split_peak = TF32_OPS_PER_S / TF32_TERMS
     B, H, P, Q = SSD_PATH
     for S, N, decay, key in SSD_LENGTHS:
         a = ssd_arrays(t, rng, B, S, H, P, N, decay)
@@ -596,7 +609,7 @@ def check_ssd_scan(t, rng, err, record):
         assert allocated >= scratch, (allocated, scratch)
         print(f"  ssd_scan           {key}: passes " + ", ".join(
             f"{k} {v:.4f}" for k, v in passes.items()) + " ms; bounds: "
-            f"float32 {bound_ms(nbytes, ops)[0]:.4f} ms, {SSD_TF32_TERMS}xTF32"
+            f"float32 {bound_ms(nbytes, ops)[0]:.4f} ms, {TF32_TERMS}xTF32"
             f" {bound_ms(nbytes, ops, split_peak)[0]:.4f} ms; "
             f"{ops / row['ms'] / 1e9:.1f} TFLOP/s of needed work; a call "
             f"allocates {allocated:,} bytes (scratch {scratch:,} beside y)",
@@ -605,9 +618,13 @@ def check_ssd_scan(t, rng, err, record):
 
 def check_flash_attention(dev, rng, err, record):
     """Against the plain version on the sweep (causal and full), at head
-    dims 64, 128, 256, and at zamba2-1.2b's shared attention in bfloat16
-    (B 2, H 32, S 4096, d 64), beside one SDPA call (library time only)."""
+    dims 64, 128, 256, and at zamba2-1.2b's shared attention (B 2, H 32,
+    S 4096, d 64) in bfloat16 and in float32, beside one SDPA call (library
+    time only).  Each call through the wrapper must move its route's
+    counter alone: every float32 case with d a multiple of 8 up to 128 the
+    tf32x3 route's."""
     import torch.nn.functional as F
+    from repro_torch.kernels import registry
     from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
                                                          launch_route, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -616,30 +633,55 @@ def check_flash_attention(dev, rng, err, record):
         return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                 .to(dev, dtype) for _ in range(3)]
 
+    def check(q, k, v, causal, label):
+        """The wrapper's call, its route's count and its error."""
+        bq = 32 if q.shape[2] % 32 == 0 else q.shape[2]
+        before = registry.launch_counts()
+        got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
+                                   block_k=bq)
+        after = registry.launch_counts()
+        moved = {r: after.get(r, 0) - before.get(r, 0) for r in FLASH_ROUTES}
+        want = f"flash_attention.{route(q.dtype, q.shape[3])}"
+        assert moved == {r: int(r == want) for r in FLASH_ROUTES}, \
+            (label, moved)
+        exp = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = float((got.float() - exp.float()).abs().max())
+        assert got.dtype == q.dtype and e <= FLASH_CAP and torch.allclose(
+            got.float(), exp.float(), **FLASH_TOL[q.dtype]), \
+            f"flash_attention {label}: max error {e} beyond " \
+            f"{FLASH_TOL[q.dtype]}"
+        err["flash_attention"] = max(err["flash_attention"], e)
+        return exp
+
     cases = [(s, dt, c) for s in FLASH_SWEEP
              for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
     cases += [((2, 4, 512, d), dt, c) for d in (64, 128, 256)
               for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
-    # the tensor-core route's head dims (48 and 96 pad to its 64- and
-    # 128-column tiles) at lengths on and off its 64- and 128-row tiles
-    cases += [((2, 3, s, d), torch.bfloat16, c) for d in (16, 32, 48, 64, 96, 128)
+    # the tensor-core routes' head dims (bf16 48 and 96, float32 8, 40 and
+    # 72 pad to their tiles) at lengths on and off their 32-, 64- and
+    # 128-row tiles
+    cases += [((2, 3, s, d), torch.bfloat16, c)
+              for d in (16, 32, 48, 64, 96, 128)
               for s in (64, 96, 128, 256) for c in (True, False)]
-    cases += [(FLASH_PATH, torch.bfloat16, True)]  # last: timed below
+    cases += [((2, 3, s, d), torch.float32, c) for d in (8, 40, 64, 72, 128)
+              for s in (96, 256) for c in (True, False)]
+    before = registry.launch_counts()
     for shape, dtype, causal in cases:
-        q, k, v = arrays(shape, dtype)
-        bq = 32 if shape[2] % 32 == 0 else shape[2]
-        got = flash_attention_cuda(q, k, v, causal=causal, block_q=bq,
-                                   block_k=bq)
-        exp = attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        e = float((got.float() - exp.float()).abs().max())
-        assert got.dtype == dtype and e <= FLASH_CAP and torch.allclose(
-            got.float(), exp.float(), **FLASH_TOL[dtype]), \
-            f"flash_attention {shape} {dtype} causal={causal}: max error " \
-            f"{e} beyond {FLASH_TOL[dtype]}"
-        err["flash_attention"] = max(err["flash_attention"], e)
+        check(*arrays(shape, dtype), causal,
+              f"{shape} {dtype} causal={causal}")
+    after = registry.launch_counts()
+    moved = {r: after.get(r, 0) - before.get(r, 0) for r in FLASH_ROUTES}
+    tf32 = sum(dt == torch.float32 and route(dt, sh[3]) == "tf32x3"
+               for sh, dt, _ in cases)
+    assert moved["flash_attention.tf32x3"] == tf32 > 0, moved
+    print(f"  flash_attention    {len(cases)} cases, {tf32} of them float32 "
+          f"with d a multiple of 8 up to 128; launches by route: {moved}",
+          flush=True)
     B, H, S, d = FLASH_PATH
+    q, k, v = arrays(FLASH_PATH, torch.bfloat16)
     assert route(q.dtype, d) == "wgmma"
+    exp = check(q, k, v, True, f"{FLASH_PATH} bf16")
     ops = 2 * 2 * B * H * S * S * d / 2
     row = record("flash_attention", f"B={B} H={H} S={S} d={d} bf16 causal",
                  10, lambda: flash_attention_cuda(q, k, v),
@@ -648,7 +690,7 @@ def check_flash_attention(dev, rng, err, record):
                                                         is_causal=True),
                  4 * B * H * S * d * 2, ops, True, BF16_OPS_PER_S)
     # the CUDA-core route on the same bfloat16 inputs (the kernel this path
-    # took before the tensor-core one), then on float32 inputs, its own
+    # took before the tensor-core one)
     got = launch_route(q, k, v, True, "simt")
     assert torch.allclose(got.float(), exp.float(),
                           **FLASH_TOL[torch.bfloat16])
@@ -658,19 +700,40 @@ def check_flash_attention(dev, rng, err, record):
           f"{wgmma:.4f} ms ({ops / wgmma / 1e9:.1f} TFLOP/s), simt "
           f"{simt_bf16:.4f} ms", flush=True)
     row["simt_bf16_ms"] = simt_bf16
+    # float32: the tensor-core route in three TF32 terms, its bound that of
+    # the split on the tensor cores (the float32 one beside), then the
+    # CUDA-core route on the same inputs, launched by hand
     q, k, v = (x.float() for x in (q, k, v))
-    assert route(q.dtype, d) == "simt"
-    got, exp = flash_attention_cuda(q, k, v), attention_ref(q, k, v)
+    assert route(q.dtype, d) == "tf32x3"
+    exp = check(q, k, v, True, f"{FLASH_PATH} float32")
+    nbytes = 4 * B * H * S * d * 4
+    split_peak = TF32_OPS_PER_S / TF32_TERMS
+    row = record("flash_attention.tf32x3",
+                 f"B={B} H={H} S={S} d={d} f32 causal", 10,
+                 lambda: flash_attention_cuda(q, k, v),
+                 lambda: attention_ref(q, k, v),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True),
+                 nbytes, ops, True, split_peak)
+    row["bound_float32_ms"] = bound_ms(nbytes, ops)[0]
+    got = launch_route(q, k, v, True, "simt")
     torch.cuda.synchronize()
     e = float((got - exp).abs().max())
     assert torch.allclose(got, exp, **FLASH_TOL[torch.float32]), \
-        f"flash_attention {FLASH_PATH} float32: max error {e}"
+        f"flash_attention simt {FLASH_PATH} float32: max error {e}"
     err["flash_attention"] = max(err["flash_attention"], e)
-    record("flash_attention.simt", f"B={B} H={H} S={S} d={d} f32 causal", 3,
-           lambda: flash_attention_cuda(q, k, v),
-           lambda: attention_ref(q, k, v),
-           lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-           4 * B * H * S * d * 4, ops, True)
+    simt = record("flash_attention.simt",
+                  f"B={B} H={H} S={S} d={d} f32 causal", 3,
+                  lambda: launch_route(q, k, v, True, "simt"),
+                  lambda: attention_ref(q, k, v),
+                  lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True),
+                  nbytes, ops, True)
+    print(f"  flash_attention    routes at the path shape, float32: tf32x3 "
+          f"{row['ms']:.4f} ms ({ops / row['ms'] / 1e9:.1f} TFLOP/s of needed "
+          f"work), simt {simt['ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms;"
+          f" bounds: {TF32_TERMS}xTF32 {row['bound_ms']:.4f} ms, float32 "
+          f"{row['bound_float32_ms']:.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1013,9 +1076,9 @@ def flash_phase(dev, rng) -> dict:
     torch.cuda.synchronize()
     counts = registry.launch_counts()
     launches = {k: counts.get(k, 0) for k in
-                ("flash_attention", "flash_attention.wgmma",
-                 "flash_attention.simt")}
+                ("flash_attention",) + FLASH_ROUTES}
     assert launches == {"flash_attention": 1, "flash_attention.wgmma": 1,
+                        "flash_attention.tf32x3": 0,
                         "flash_attention.simt": 0}, launches
     assert torch.isfinite(out.float()).all()
     print(f"flash_attention phase (entry point, (B, H, S, d) = {FLASH_PATH}, "
@@ -1076,8 +1139,8 @@ def main() -> int:
     print("launches by route and path: " + json.dumps(
         {r: launches.get(r, 0) for r in ROUTES}), flush=True)
     print("routes: " + json.dumps({
-        "flash_attention.simt": {**checked["timed"]["flash_attention.simt"],
-                                 "source": SIMT_SOURCE}}), flush=True)
+        r: {**checked["timed"][r], "source": src}
+        for r, src in ROUTE_SOURCES.items()}), flush=True)
     kernels = []
     for k in PATH_KERNELS + LM_KERNELS:
         row = checked["timed"][k]

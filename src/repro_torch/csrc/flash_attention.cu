@@ -12,11 +12,12 @@
 // tiles too; they add nothing).
 //
 // This is the CUDA-core route: the wrapper
-// (kernels/flash_attention/ops.py:route) sends it float32 inputs (TF32 on
-// the tensor cores would miss the float32 sweep's atol 3e-5), d not a
-// multiple of 16 (d = 8 in the sweep) and bf16 with d > 128; bf16 with d a
-// multiple of 16 up to 128 goes to the tensor-core kernel in
-// flash_attention_wgmma.cu.
+// (kernels/flash_attention/ops.py:route) sends it float32 with d not a
+// multiple of 8 or above 128, and bf16 with d not a multiple of 16 or above
+// 128.  float32 with d a multiple of 8 up to 128 goes to the tensor cores
+// in three TF32 terms (flash_attention_tf32.cu; one term would miss the
+// float32 sweep's atol 3e-5, three keep it), bf16 with d a multiple of 16
+// up to 128 to flash_attention_wgmma.cu.
 //
 // Bound on this card: operations (2 * 2 * S^2 * d per head, halved when
 // causal, against a few bytes per row).  It computes on the CUDA cores in

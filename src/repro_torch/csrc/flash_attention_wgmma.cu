@@ -2,13 +2,15 @@
 // causal (or full) multi-head attention with an online softmax, scale
 // 1/sqrt(d), q/k/v (B*H, S, d) -> out (B*H, S, d), d a multiple of 16 up
 // to 128.  Running max, denominator and accumulator are float32; masked
-// scores are -1e30; out = acc / max(l, 1e-30).  float32 inputs, d = 8 and
-// d > 128 take the CUDA-core kernel in flash_attention.cu; the wrapper
+// scores are -1e30; out = acc / max(l, 1e-30).  float32 with d a multiple
+// of 8 up to 128 takes the tensor cores in three TF32 terms
+// (flash_attention_tf32.cu); the other head dims, in either dtype, take the
+// CUDA-core kernel in flash_attention.cu; the wrapper
 // (kernels/flash_attention/ops.py:route) chooses.
 //
 // Replaces the TPU kernel flash_attention_pallas / _flash_kernel in
-// src/repro/kernels/flash_attention/flash_attention.py:62, as
-// flash_attention.cu does for the other inputs.
+// src/repro/kernels/flash_attention/flash_attention.py:62, as the other two
+// kernels do for the other inputs.
 //
 // Bound on this card: bf16 operations, 2 * 2 * B*H * S^2 * d, halved when
 // causal (against 4 * B*H * S * d * 2 bytes).
@@ -63,9 +65,11 @@
 #include <cuda_bf16.h>
 
 #include "lm_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+using namespace repro::hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;           // query rows of a block
@@ -75,62 +79,11 @@ constexpr int kStages = 3;         // K/V ring
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
-}
-// order this thread's shared-memory writes before the async proxy's reads
-// (wgmma reads its operands through it)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from touching registers that an issued wgmma still
-// reads or writes before the wait that completes it
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void keep(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// byte offset of 16-byte chunk c (8 bf16 columns) of row r in a swizzled
-// tile of ROWS rows: 64-column blocks of ROWS x 128 bytes one after another
-template <int ROWS>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
 // rows [row0, row0 + ROWS) of a (S, d) matrix into a swizzled ROWS x DP
@@ -291,18 +244,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
-}
-// named barriers: the two warpgroups take the tensor cores in turn
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ float ex2(float x) {  // 2^x; tiny results flush
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // byte offsets in the block's shared memory (from a 1024-aligned base)

@@ -135,56 +135,10 @@ __device__ __forceinline__ void stage(T* s, int ld, const T* g,
   }
 }
 
-// ---- TF32 products on the tensor cores -----------------------------------
-// cvt.rna.tf32.f32 for finite v: round the magnitude to 10 mantissa bits,
-// ties away from zero (half a step added to the bits, the low 13 cleared),
-// in two integer operations and without the instruction's NaN handling
-__device__ __forceinline__ uint32_t tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo, each a TF32 value
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An m16 x k8 A fragment, split: element r of lane (g = lane / 4,
-// t = lane % 4) is (row g + 8 (r & 1), column t + 4 (r >> 1)).
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(int r, float v) { split(v, hi[r], lo[r]); }
-};
-
-// hi and lo of v side by side, as the split shared tiles hold them
-__device__ __forceinline__ uint2 split2(float v) {
-  uint2 r;
-  split(v, r.x, r.y);
-  return r;
-}
-
-// d += A B for one k8 x n8 B fragment (rows t and t + 4, column g), the
-// small terms first
-__device__ __forceinline__ void mma_split(float (&d)[4], const FragA& a,
-                                          uint2 b0, uint2 b1) {
-  mma(d, a.lo, b0.x, b1.x);
-  mma(d, a.hi, b0.y, b1.y);
-  mma(d, a.hi, b0.x, b1.x);
-}
-
-// the same with a B fragment split here (pass 3, a small share of the work)
-__device__ __forceinline__ void mma_split(float (&d)[4], const FragA& a,
-                                          float b0, float b1) {
-  mma_split(d, a, split2(b0), split2(b1));
-}
+// ---- TF32 products on the tensor cores (lm_common.cuh) ---------------
+using repro::FragA;
+using repro::mma_split;
+using repro::split2;
 
 // Inclusive prefix sum of g[0], g[stride], ... g[(Q-1) stride] into cum[0, Q)
 // by the whole block; `tot` holds a float per warp.

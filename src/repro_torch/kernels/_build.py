@@ -68,6 +68,10 @@ _SIGNATURES = {
     # (bfloat16, head_dim a multiple of 16 up to 128)
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
                                      ctypes.c_float, _I32, _P],
+    # q, k, v, out, batch*heads, seq, head_dim, scale, causal, stream
+    # (float32, head_dim a multiple of 8 up to 128)
+    "flash_attention_tf32_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
+                                    ctypes.c_float, _I32, _P],
 }
 
 _LOCK = threading.Lock()

@@ -1,14 +1,17 @@
 """Public wrapper for flash attention (registry-dispatched).
 
-Two hand-written CUDA kernels replace the TPU kernel
+Three hand-written CUDA kernels replace the TPU kernel
 ``flash_attention_pallas`` of the JAX package; :func:`route` picks one by
 dtype and head dim:
 
 * ``wgmma``: ``csrc/flash_attention_wgmma.cu``, bfloat16 on the tensor
   cores, for d a multiple of 16 up to 128;
+* ``tf32x3``: ``csrc/flash_attention_tf32.cu``, float32 on the tensor
+  cores, each product as three TF32 products (lo*hi + hi*lo + hi*hi of
+  each operand split into hi + lo, which keeps the float32 tolerance; one
+  TF32 product would not), for d a multiple of 8 up to 128;
 * ``simt``: ``csrc/flash_attention.cu``, float32 arithmetic on the CUDA
-  cores, for float32 inputs (TF32 would miss the float32 tolerance), other
-  head dims and bfloat16 with d > 128.
+  cores, for the other head dims, in either dtype.
 
 Each launch adds one to ``flash_attention`` and to
 ``flash_attention.<route>``.  As in the JAX package, no model path calls
@@ -25,16 +28,19 @@ from ..registry import count_launch, register, resolve
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256  # the q, k and v tiles of 64 rows fit shared memory
-WGMMA_MAX_HEAD_DIM = 128  # the tensor-core kernel's 64- or 128-wide tiles
+WGMMA_MAX_HEAD_DIM = 128  # the tensor-core kernels' widest tiles
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head dim d) on the card: ``wgmma``
-    for bfloat16 with d a multiple of 16 up to 128, else ``simt``."""
-    if (dtype == torch.bfloat16 and d % 16 == 0
-            and 16 <= d <= WGMMA_MAX_HEAD_DIM):
-        return "wgmma"
+    for bfloat16 with d a multiple of 16 up to 128, ``tf32x3`` for
+    float32 with d a multiple of 8 up to 128, else ``simt``."""
+    if 0 < d <= WGMMA_MAX_HEAD_DIM:
+        if dtype == torch.bfloat16 and d % 16 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and d % 8 == 0:
+            return "tf32x3"
     return "simt"
 
 
@@ -73,17 +79,21 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
 
 
 def launch_route(q, k, v, causal: bool, kind: str):
-    """Launch one route's kernel (``wgmma`` or ``simt``) on checked CUDA
-    tensors (B, H, S, d); returns the output.  Counts nothing: the wrapper
-    counts."""
+    """Launch one route's kernel (``wgmma``, ``tf32x3`` or ``simt``) on
+    checked CUDA tensors (B, H, S, d); returns the output.  Counts nothing:
+    the wrapper counts."""
     B, H, S, d = q.shape
+    # contiguous, and 16-byte aligned for the kernels' vector loads
     q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
             S, d, 1.0 / math.sqrt(d), int(causal))
     lib = _build.library()
     if kind == "wgmma":
         err = lib.flash_attention_wgmma_launch(*args, _build.stream(out))
+    elif kind == "tf32x3":
+        err = lib.flash_attention_tf32_launch(*args, _build.stream(out))
     else:
         err = lib.flash_attention_launch(*args, DTYPES[q.dtype],
                                          _build.stream(out))

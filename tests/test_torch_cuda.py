@@ -318,7 +318,7 @@ def test_cuda_mamba2_prefill_and_decode(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The two flash_attention routes and the two hash_group_minmax paths.
+# The flash_attention routes and the two hash_group_minmax paths.
 # Tensor-core route (bfloat16, d a multiple of 16 up to 128; 48 and 96 pad
 # to the kernel's 64- and 128-column tiles): against the plain version run
 # on the card, at the bfloat16 tolerance above (atol 1e-4 + 2^-7 |exp|,
@@ -362,12 +362,79 @@ def test_cuda_flash_attention_route_counters(cuda):
     run(torch.float32, 64)
     run(torch.bfloat16, 256)
     run(torch.bfloat16, 8)
+    run(torch.float32, 256)
     after = registry.launch_counts()
     moved = {k: after.get(k, 0) - before.get(k, 0) for k in
              ("flash_attention", "flash_attention.wgmma",
-              "flash_attention.simt")}
-    assert moved == {"flash_attention": 4, "flash_attention.wgmma": 1,
-                     "flash_attention.simt": 3}
+              "flash_attention.tf32x3", "flash_attention.simt")}
+    assert moved == {"flash_attention": 5, "flash_attention.wgmma": 1,
+                     "flash_attention.tf32x3": 1, "flash_attention.simt": 3}
+
+
+# The float32 route on the tensor cores (three TF32 terms, d a multiple of
+# 8 up to 128; csrc/flash_attention_tf32.cu): the JAX sweep, d 8, 64 and
+# 128 at S = 96 (no multiple of its 64- or 32-key tiles) and the path
+# shape, both masks, against the plain version at the float32 atol 3e-5.
+TF32_SHAPES = FLASH_SHAPES + [(2, 3, 96, 8), (2, 3, 96, 64), (2, 3, 96, 128),
+                              (2, 3, 256, 128), (1, 2, 4096, 64)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_tf32x3(cuda, shape, causal):
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_cuda,
+                                                         route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    assert route(torch.float32, shape[3]) == "tf32x3"
+    q, k, v = (t.to(cuda) for t in flash_inputs(shape, torch.float32))
+    before = registry.launch_counts()
+    got = flash_attention_cuda(q, k, v, causal=causal, block_q=shape[2],
+                               block_k=shape[2])
+    after = registry.launch_counts()
+    assert [after.get(k, 0) - before.get(k, 0) for k in
+            ("flash_attention.tf32x3", "flash_attention.simt")] == [1, 0]
+    exp = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_allclose(_np(got), _np(exp), atol=3e-5, rtol=0.0)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 256)])
+def test_cuda_flash_attention_unaligned_inputs(cuda, dtype, d):
+    """Contiguous inputs that start off a 16-byte boundary (a view at an
+    odd element offset) reach the kernels' 16-byte loads aligned."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    shape = (1, 2, 96, d)
+    n = int(np.prod(shape))
+    q, k, v = (torch.empty(n + 1, dtype=dtype, device=cuda)[1:].view(shape)
+               .copy_(t) for t in flash_inputs(shape, dtype))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    got = flash_attention_cuda(q, k, v)
+    exp = attention_ref(q, k, v).float()
+    if dtype == torch.float32:
+        atol, rtol = 3e-5, 0.0
+    else:
+        atol, rtol = 1e-4, 2 ** -7
+    np.testing.assert_allclose(_np(got.float()), _np(exp), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_cuda_flash_attention_simt_keeps_float32(cuda, d):
+    """The CUDA-core route, which chip_smoke times beside the tensor-core
+    one, still computes float32 at d <= 128 when launched by hand."""
+    from repro_torch.kernels.flash_attention.ops import launch_route
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = (t.to(cuda) for t in flash_inputs((2, 3, 96, d),
+                                                 torch.float32))
+    got = launch_route(q, k, v, True, "simt")
+    np.testing.assert_allclose(_np(got), _np(attention_ref(q, k, v)),
+                               atol=3e-5, rtol=0.0)
 
 
 def _bits(t):

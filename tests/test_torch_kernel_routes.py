@@ -2,8 +2,10 @@
 to, against the JAX package's.
 
 - ``flash_attention``: :func:`route` sends bfloat16 with d a multiple of 16
-  up to 128 to the tensor-core kernel (``wgmma``) and everything else to the
-  CUDA-core kernel (``simt``).  The tensor-core kernel carries P as two
+  up to 128 to the bfloat16 tensor-core kernel (``wgmma``), float32 with d
+  a multiple of 8 up to 128 to the TF32 one (``tf32x3``, emulated in
+  test_torch_flash_tf32.py) and everything else to the CUDA-core kernel
+  (``simt``).  The bfloat16 tensor-core kernel carries P as two
   bfloat16 terms; an emulation of its tile loop here shows why one term
   would not do.
 - ``hash_group_minmax``: :func:`minmax_path` sends up to ``ONE_BLOCK_ROWS``
@@ -51,14 +53,22 @@ def _t(a):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_route(dtype, d):
-    want = "wgmma" if dtype == torch.bfloat16 and d in (16, 32, 64, 128) \
-        else "simt"
+    if dtype == torch.bfloat16 and d in (16, 32, 64, 128):
+        want = "wgmma"
+    elif dtype == torch.float32 and d <= 128:
+        want = "tf32x3"
+    else:
+        want = "simt"
     assert route(dtype, d) == want
 
 
 def test_flash_route_needs_multiples_of_16():
+    """bfloat16 takes the tensor cores at multiples of 16, float32 at
+    multiples of 8, each up to 128."""
     assert [route(torch.bfloat16, d) for d in (24, 48, 80, 96, 112, 120)] == \
         ["simt", "wgmma", "wgmma", "wgmma", "wgmma", "simt"]
+    assert [route(torch.float32, d) for d in (4, 12, 24, 40, 120, 136)] == \
+        ["simt", "simt", "tf32x3", "tf32x3", "tf32x3", "simt"]
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 128, 128), (2, 2, 96, 64)])

@@ -247,3 +247,41 @@ def test_default_engine_is_cuda_and_never_falls_back(tiny):
             return
         with pytest.raises(tdb.DatabaseError, match="needs an NVIDIA GPU"):
             conn.execute(sql).fetchall()
+
+
+# ROADMAP C6, closed by the port's device rule: the reference's default
+# engine is "auto" (numpy on the host); the port's is "cuda", because its
+# entry points run on the card unless the caller asks for the CPU.  With no
+# card a default connection raises and names the CPU engines; asked for,
+# they answer as the reference's default connection does.
+C6_SQL = "SELECT g, SUM(x) FROM t WHERE x > 1 GROUP BY g"
+
+
+def _c6_warehouse(api, path):
+    conn = api.connect(path, engine="auto")
+    conn.execute("CREATE TABLE t (x INT, g INT)")
+    conn.execute("INSERT INTO t VALUES (1, 1), (2, 1), (3, 2), (50, 2)")
+    conn.close()
+    return path
+
+
+def test_default_engine_is_cuda_and_names_the_cpu_engines(tmp_path):
+    if registry.on_gpu():
+        pytest.skip("the default engine runs on the card here")
+    from repro_torch.core.config_keys import CONFIG_KEYS
+    from repro_torch.core.runtime.exec import ExecContext
+
+    assert CONFIG_KEYS["engine"].default == "cuda"
+    assert ExecContext(None, None).engine == "cuda"
+    ref = _c6_warehouse(rdb, str(tmp_path / "ref_wh"))
+    port = _c6_warehouse(tdb, str(tmp_path / "port_wh"))
+    with rdb.connect(ref, result_cache=False) as rc:
+        exp = _run(rc, C6_SQL)
+    assert sorted(exp[1]) == [(1, 2), (2, 53)]
+    with tdb.connect(port, result_cache=False) as conn:
+        assert conn.session.config["engine"] == "cuda"
+        with pytest.raises(tdb.DatabaseError, match="engine='ref'"):
+            conn.execute(C6_SQL).fetchall()
+    for engine in ("auto", "ref"):
+        with tdb.connect(port, engine=engine, result_cache=False) as conn:
+            _assert_rows_equal(_run(conn, C6_SQL), exp, engine)

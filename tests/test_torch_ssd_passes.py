@@ -15,7 +15,7 @@ path's head width and on a mamba2-130m block's own scan inputs, at the
 tolerances chip_smoke.py holds the kernel to: SSD_TOL (the JAX sweep's) and
 SSD_MODEL_TOL (1e-3 of the layer's largest |y|).  One TF32 term breaks
 SSD_TOL on the sweep and at path width; three hold it with room to spare,
-so the kernel takes three (``mma_split`` in csrc/ssd_scan.cu), and
+so the kernel takes three (``mma_split`` in csrc/lm_common.cuh), and
 chip_smoke.py counts the bound of its products from three.
 
 The card tests (test_torch_cuda.py) launch each pass on its own and compare
@@ -284,8 +284,9 @@ def test_chip_smoke_bound_counts_the_kernels_terms():
         "chip_smoke", os.path.join(repo, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.SSD_TF32_TERMS == KERNEL_TERMS
-    with open(os.path.join(repo, "src/repro_torch/csrc/ssd_scan.cu")) as f:
+    assert smoke.TF32_TERMS == KERNEL_TERMS
+    # the split products live in lm_common.cuh, shared with flash_attention
+    with open(os.path.join(repo, "src/repro_torch/csrc/lm_common.cuh")) as f:
         src = f.read()
     body = src.split("void mma_split(", 1)[1].split("\n}\n", 1)[0]
     assert len(re.findall(r"\bmma\(d,", body)) == KERNEL_TERMS

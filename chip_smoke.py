@@ -68,7 +68,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -99,6 +101,18 @@ LINEORDER_COLS = ("lo_orderkey", "lo_custkey", "lo_partkey", "lo_suppkey",
 PATH_KERNELS = ("filter_eval", "key_lookup", "hash_group",
                 "hash_group_minmax", "hash_partition", "bloom_probe")
 EARLIER_KERNELS = PATH_KERNELS[:4]
+# the executor's pool (core/runtime/llap.py: LLAPDaemon's num_executors)
+THREADS = 4
+# the calls whose parts are timed, and the query profiled for them: it
+# probes runtime filters on every lineorder stripe and joins three
+# dimensions
+PROFILED_KERNELS = ("key_lookup", "bloom_probe")
+PROFILE_QUERY = "q2.1"
+TOP_DEVICE_OPS = 10
+GRAPH_REPLAYS = 10
+# build-side uploads against launches on the path: far fewer (SSB at SF1
+# has hundreds of stripes a query)
+MORSELS_PER_UPLOAD = 10
 # the LM side: ssd_scan on the serving path, flash_attention at its own
 # entry point (no model path of the JAX package calls it)
 LM_KERNELS = ("ssd_scan", "flash_attention")
@@ -159,6 +173,32 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 100) -> float:
+    """Mean ms per call of ``fn`` (a kernel's wrapper on card tensors)
+    replayed from a CUDA graph of ``reps`` calls, by CUDA events: the
+    card's time per launch without the host's issue time, which a loop of
+    wrapper calls measures at the path's small shapes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * reps)
+
+
 def host_ms(fn, args, reps: int = 200) -> float:
     """Mean ms per numpy-in/numpy-out call (copy in, launch, copy out), as
     the executor makes it for every morsel; host clock, the copy back
@@ -171,11 +211,54 @@ def host_ms(fn, args, reps: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def host_round_trips() -> dict:
-    """The executor's per-morsel kernel call at the main path's shapes."""
+def threaded_ms(fn, args, threads: int = THREADS, reps: int = 200) -> float:
+    """Mean ms per call on each of ``threads`` threads calling ``fn`` at
+    once (the executor's pool has THREADS), host clock."""
+    start = threading.Barrier(threads)
+
+    def run(_):
+        for _ in range(3):
+            fn(*args)
+        start.wait()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(threads) as pool:
+        spent = list(pool.map(run, range(threads)))
+    return sum(spent) / threads * 1e3 / reps
+
+
+def empty_call(x):
+    """An empty kernel: ``x`` in, an int32 result of its length out,
+    nothing computed."""
+    from repro_torch.kernels import _build
+
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    _build.check(_build.library().repro_empty_launch(_build.stream(out)),
+                 "empty")
+    return out
+
+
+def empty_trip(device, x):
+    """The empty kernel behind the executor's call on the card (the floor
+    of a call): ``x`` up, the launch, as many int32 back, one trip."""
     from repro_torch.kernels import registry
 
-    rng = np.random.default_rng(1)
+    (out,) = registry.trip("repro_empty", device, [x],
+                           [(np.int32, x.shape)], lambda i, o: ())
+    return out
+
+
+def round_trip_calls(rng) -> dict:
+    """The executor's per-morsel kernel calls at the main path's shapes:
+    kernel name -> (tensor function, arguments as the executor passes
+    them).  The join dictionary and the runtime filter's bitset are
+    build-side state, made once on the card (registry.upload), as
+    _BuildTable and _KernelBloomProbe hold them."""
+    from repro_torch.kernels import registry
+
     dev = torch.device("cuda")
     n = 1024
     codes = rng.integers(0, 7, n).astype(np.int32)
@@ -183,7 +266,8 @@ def host_round_trips() -> dict:
     calls = {
         "filter_eval": ((rng.integers(0, 50, n).astype(np.float32),),
                         (0,), (25.0,)),
-        "key_lookup": (np.arange(2556, dtype=np.float32),
+        "key_lookup": (registry.upload(np.arange(2556, dtype=np.float32),
+                                       dev, "key_lookup"),
                        rng.integers(0, 2556, n).astype(np.float32)),
         "hash_group": (codes, vals, 7),
         "hash_group_minmax": (codes, vals, 7),
@@ -193,14 +277,257 @@ def host_round_trips() -> dict:
         # an 8192-row stripe against a 512-bit runtime filter, k = 6
         "bloom_probe": (rng.integers(0, 2**32, 8192, dtype=np.uint32),
                         rng.integers(0, 2**32, 8192, dtype=np.uint32),
-                        rng.integers(0, 2**32, 16, dtype=np.uint32), 6, 512),
+                        registry.upload(rng.integers(0, 2**32, 16,
+                                                     dtype=np.uint32),
+                                        dev, "bloom_probe"), 6, 512),
     }
-    out = {}
-    for k, args in calls.items():
-        fn = registry.host_call(registry.resolve(k, "cuda"), dev)
-        out[k] = host_ms(fn, args)
-        print(f"  {k:18s} host round trip {out[k]:.4f} ms", flush=True)
-    return out
+    return {k: (registry.resolve(k, "cuda"), args)
+            for k, args in calls.items()}
+
+
+def pageable_call(fn, dev):
+    """``fn`` called through pageable torch copies, as host_call called
+    every kernel before the trip and the yardstick of it: each array copied
+    to the card by a synchronous copy from pageable memory on the calling
+    thread's current stream, the result back by ``.cpu()``."""
+    from repro_torch.kernels import registry
+
+    return lambda *args: registry._to_host(fn(*registry._to_device(args,
+                                                                   dev)))
+
+
+def host_round_trips(rng) -> dict:
+    """Each SQL kernel's executor call at the path's shapes on one thread
+    and on THREADS threads at once, beside the empty kernel's call (the
+    floor) and, for key_lookup, bloom_probe and the empty kernel, the
+    pageable call (pageable_call) with the dictionary and bitset sent each
+    call; and the split of key_lookup's and bloom_probe's call into its
+    parts on one thread (PartClocks).  Returns {"1": {kernel: ms}, "4":
+    {kernel: ms}, "pageable": {kernel: [ms on 1, on 4 threads]}, "split":
+    ...}."""
+    from repro_torch.kernels import registry
+
+    dev = torch.device("cuda")
+    calls = round_trip_calls(rng)
+    registry.register_trip(empty_call, empty_trip)
+    calls["empty"] = (empty_call, (rng.integers(0, 50, 1024)
+                                   .astype(np.float32),))
+    one, many = {}, {}
+    for k, (fn, args) in calls.items():
+        call = registry.host_call(fn, dev)
+        one[k] = host_ms(call, args)
+        many[k] = threaded_ms(call, args)
+        print(f"  {k:18s} host round trip {one[k]:.4f} ms; "
+              f"{THREADS} threads at once {many[k]:.4f} ms a call",
+              flush=True)
+    pageable = {}
+    for k in PROFILED_KERNELS + ("empty",):
+        fn, args = calls[k]
+        args = tuple(a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+        call = pageable_call(fn, dev)
+        pageable[k] = [host_ms(call, args), threaded_ms(call, args)]
+        print(f"  {k:18s} pageable call (torch copies, build-side state "
+              f"sent each call) {pageable[k][0]:.4f} ms; {THREADS} threads "
+              f"at once {pageable[k][1]:.4f} ms a call", flush=True)
+    with PartClocks() as clocks:
+        for k in PROFILED_KERNELS:
+            fn, args = calls[k]
+            host_ms(clocks.outer(k, registry.host_call(fn, dev)), args)
+    split = clocks.means()
+    print("  alone, one thread: " + clocks.line(split), flush=True)
+    return {"1": one, str(THREADS): many, "pageable": pageable,
+            "split": split}
+
+
+class PartClocks:
+    """Host time of the parts of the executor's key_lookup and bloom_probe
+    calls, on the host clock, while in a ``with`` block.  It wraps the
+    registry's one native call that stages the morsel, copies it in,
+    launches, copies the results back, synchronises and copies them out
+    (``_run``, the trip), and, inside ``_BuildTable._lookup`` and
+    ``_KernelBloomProbe.might_contain``, the whole call; what the trip
+    leaves of the call is the executor's own work around it (the float32
+    cast and round-trip test, the hashing, the kernel's resolution, the
+    trip's arguments).  Only calls that made a trip are counted."""
+
+    PARTS = ("call", "trip")
+
+    def __init__(self):
+        self._sums = {k: dict.fromkeys(self.PARTS + ("calls",), 0.0)
+                      for k in PROFILED_KERNELS}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._undo = []
+
+    def _part(self, part, fn):
+        """``fn`` timed as ``part``; a call of it made inside another (a
+        function that recurses through its module's name) counts once."""
+        local = self._local
+
+        def timed(*a, **kw):
+            depth = getattr(local, "depth", None)
+            if depth is None:
+                depth = local.depth = {}
+            if depth.get(part, 0):
+                return fn(*a, **kw)
+            depth[part] = 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[part] = 0
+                parts = getattr(local, "parts", None)
+                if parts is not None:
+                    parts[part] = parts.get(part, 0.0) + \
+                        time.perf_counter() - t0
+        return timed
+
+    def outer(self, kernel, fn):
+        """``fn`` timed as one whole call of ``kernel``."""
+        local = self._local
+
+        def whole(*a, **kw):
+            local.parts, local.launched = {}, False
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                if local.launched:
+                    with self._lock:
+                        sums = self._sums[kernel]
+                        sums["call"] += dt
+                        sums["calls"] += 1
+                        for part, v in local.parts.items():
+                            sums[part] += v
+                local.parts = None
+        return whole
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+
+    def __enter__(self):
+        from repro_torch.core.runtime import exec as ex
+        from repro_torch.kernels import registry
+
+        timed_run = self._part("trip", registry._run)
+
+        def run(*a, **kw):
+            self._local.launched = True
+            return timed_run(*a, **kw)
+
+        self._patch(registry, "_run", run)
+        self._patch(ex._BuildTable, "_lookup",
+                    self.outer("key_lookup", ex._BuildTable._lookup))
+        self._patch(ex._KernelBloomProbe, "might_contain",
+                    self.outer("bloom_probe",
+                               ex._KernelBloomProbe.might_contain))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in reversed(self._undo):
+            setattr(owner, name, value)
+        self._undo.clear()
+        return False
+
+    def means(self) -> dict:
+        """kernel -> {"calls": n, part: mean ms per call, "rest": ms}."""
+        out = {}
+        for k, sums in self._sums.items():
+            n = int(sums["calls"])
+            row = {"calls": n}
+            for part in self.PARTS:
+                row[part] = sums[part] * 1e3 / n if n else None
+            if n:
+                row["rest"] = row["call"] - sum(
+                    row[p] for p in self.PARTS[1:])
+            out[k] = row
+        return out
+
+    @staticmethod
+    def line(means: dict) -> str:
+        return "; ".join(
+            f"{k}: {row['calls']} calls, " + ", ".join(
+                f"{p} {row[p]:.4f}" for p in PartClocks.PARTS + ("rest",)
+                if row.get(p) is not None) + " ms"
+            for k, row in means.items())
+
+
+def device_profile(run) -> dict:
+    """torch.profiler (CPU and CUDA activities, no stacks or shapes) over
+    ``run()``: the device's busy share of the window (the union of the
+    device's kernel and copy intervals over the span from the first to
+    the last event), and device time by operation name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=False, with_stack=False) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    window = (max(e for _, e in spans) - min(s for s, _ in spans)
+              if spans else 0.0)
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    by_name = {}
+    for s, e, name in dev:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + e - s, count + 1)
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / window if window else None,
+            "device_events": len(dev), "host_events": len(events) - len(dev),
+            "by_name": by_name}
+
+
+def profile_path(db, wh, cfg: dict, name: str, sql: str,
+                 isolated: dict) -> dict:
+    """``name`` under ``engine: cuda`` twice: under torch.profiler (the
+    device's busy share and its top operations), then under PartClocks
+    (the split of each key_lookup and bloom_probe call); the split is set
+    beside the one-thread split of the same calls alone (``isolated``),
+    and what the path adds to copy back and synchronise is time spent
+    waiting on the other threads' work."""
+    with db.connect(warehouse=wh, engine="cuda", **cfg) as conn:
+        prof = device_profile(lambda: rows_of(conn.execute(sql)))
+        print(f"profile of {name} under cuda (torch.profiler, CPU and CUDA "
+              f"activities): window {prof['window_ms']:.1f} ms, "
+              f"{prof['host_events']} host events, {prof['device_events']} "
+              f"device events", flush=True)
+        if prof["device_events"]:
+            print(f"  device busy {prof['busy_ms']:.2f} ms, share "
+                  f"{prof['busy_share']:.5f} of the window", flush=True)
+            top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])
+            for op, (us, count) in top[:TOP_DEVICE_OPS]:
+                print(f"  device op {us / 1e3:10.3f} ms {count:7d} x "
+                      f"{us / count:8.2f} us  {op}", flush=True)
+        else:
+            print("  the profiler recorded no device time: busy share not "
+                  "measured; the parts below are host clocks", flush=True)
+        with PartClocks() as clocks:
+            t0 = time.perf_counter()
+            rows_of(conn.execute(sql))
+            wall = (time.perf_counter() - t0) * 1e3
+    path = clocks.means()
+    print(f"  {name} under PartClocks {wall:.1f} ms; on the path: "
+          + clocks.line(path), flush=True)
+    for k in PROFILED_KERNELS:
+        if path[k]["calls"] and isolated[k]["calls"]:
+            wait = path[k]["trip"] - isolated[k]["trip"]
+            print(f"  {k}: the trip (copy in, launch, copy back, "
+                  f"synchronise) {path[k]['trip']:.4f} ms on the path "
+                  f"against {isolated[k]['trip']:.4f} ms alone: "
+                  f"{wait:.4f} ms waiting on other threads' work",
+                  flush=True)
+    return {"profile": {k: v for k, v in prof.items() if k != "by_name"},
+            "split": path}
 
 
 def tensor_core_report(lib, log: str) -> None:
@@ -269,9 +596,13 @@ def check_kernels(dev, rng) -> dict:
         bms, by = bound_ms(nbytes, ops, peak)
         row = {"shape": shape, "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by}
+        if name in PROFILED_KERNELS:
+            row["graph_ms"] = graph_ms(kern)
         print(f"  {name:18s} {shape:22s} kernel {ms:.4f} ms  plain "
               f"{pms:.4f} ms  library {'-' if lms is None else f'{lms:.4f}'}"
-              f" ms  bound {bms:.6f} ms ({by})", flush=True)
+              f" ms  bound {bms:.6f} ms ({by})"
+              + (f"  from a CUDA graph {row['graph_ms']:.4f} ms"
+                 if "graph_ms" in row else ""), flush=True)
         if key is not None:
             timed[key] = row
         elif main:
@@ -798,18 +1129,22 @@ def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
 
     print(title, flush=True)
     print(f"{'query':10s} {'rows':>6s} {'cuda ms':>10s} {'auto ms':>10s}"
-          "  cuda launches (" + " ".join(PATH_KERNELS) + ")", flush=True)
+          "  cuda launches (" + " ".join(PATH_KERNELS) + "); uploads ("
+          + " ".join(PROFILED_KERNELS) + ")", flush=True)
     llap0 = dict(wh.llap.counters)
     total_c = total_a = 0.0
     with db.connect(warehouse=wh, engine="cuda", **cfg) as cuda, \
             db.connect(warehouse=wh, engine="auto", **cfg) as auto:
         registry.reset_launch_counts()
+        registry.reset_upload_counts()
         for name, sql in queries.items():
             before = registry.launch_counts()
+            up_before = registry.upload_counts()
             t0 = time.perf_counter()
             got = rows_of(cuda.execute(sql))
             mc = (time.perf_counter() - t0) * 1e3
             after = registry.launch_counts()
+            up_after = registry.upload_counts()
             t0 = time.perf_counter()
             exp = rows_of(auto.execute(sql))
             ma = (time.perf_counter() - t0) * 1e3
@@ -817,19 +1152,29 @@ def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
             total_c, total_a = total_c + mc, total_a + ma
             counts = " ".join(str(after.get(k, 0) - before.get(k, 0))
                               for k in PATH_KERNELS)
+            ups = " ".join(str(up_after.get(k, 0) - up_before.get(k, 0))
+                           for k in PROFILED_KERNELS)
             print(f"{name:10s} {len(got):6d} {mc:10.1f} {ma:10.1f}  "
-                  f"{counts}", flush=True)
+                  f"{counts}; {ups}", flush=True)
         torch.cuda.synchronize()
         launches = registry.launch_counts()
+        uploads = registry.upload_counts()
     print(f"{'total':10s} {'':6s} {total_c:10.1f} {total_a:10.1f}; "
           f"{llap_line(wh, llap0)}", flush=True)
     print(f"launches: {launches}", flush=True)
+    print(f"uploads of build-side state: {uploads}", flush=True)
     for k in kernels:
         assert launches.get(k, 0) > 0, f"{k} never launched on the path"
+    # a join's dictionary and a runtime filter's bitset go to the card once
+    # each (per build table and per scan), never once per morsel or stripe
+    for k in PROFILED_KERNELS:
+        if launches.get(k, 0):
+            assert 0 < uploads.get(k, 0) * MORSELS_PER_UPLOAD <= \
+                launches[k], (k, uploads, launches)
     return launches
 
 
-def main_path(rows: int, work_dir: str) -> dict:
+def main_path(rows: int, work_dir: str, isolated: dict) -> dict:
     import repro_torch.api as db
     from repro_torch.core.session import Warehouse
     from repro_torch.workloads.ssb import (KERNEL_QUERIES, SSB_QUERIES,
@@ -868,6 +1213,8 @@ def main_path(rows: int, work_dir: str) -> dict:
             f"{len(queries)} queries, lineorder {rows} rows")
         # the executor's 1,024-row morsels take the one-launch path
         assert launches.get("hash_group_minmax.one_block", 0) > 0, launches
+        profile_path(db, wh, {**CONFIG, "exchange.spill_dir": spill},
+                     PROFILE_QUERY, queries[PROFILE_QUERY], isolated)
         run_path(
             db, wh, {**EARLIER, "exchange.spill_dir": spill},
             {name: queries[name] for name in EARLIER_QUERIES},
@@ -1128,13 +1475,20 @@ def main() -> int:
     print("kernel checks against the plain versions on the card:",
           flush=True)
     checked = check_kernels(dev, rng)
-    print("executor calls (numpy in, numpy out) at the path's shapes:", flush=True)
-    round_trip = host_round_trips()
+    print("executor calls (numpy in, numpy out) at the path's shapes:",
+          flush=True)
+    round_trip = host_round_trips(rng)
+    print(f"host_call_ms, {THREADS} threads at once: "
+          + json.dumps(round_trip[str(THREADS)]), flush=True)
+    print("host_call_ms, empty kernel (the floor): " + json.dumps(
+        {n: round_trip[n]["empty"] for n in ("1", str(THREADS))}),
+        flush=True)
 
     lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
                    **flash_phase(dev, rng)}
     work = os.path.join(HERE, "build", "chip_smoke_wh")
-    launches = {**main_path(args.rows, work), **lm_launches}
+    launches = {**main_path(args.rows, work, round_trip["split"]),
+                **lm_launches}
 
     print("launches by route and path: " + json.dumps(
         {r: launches.get(r, 0) for r in ROUTES}), flush=True)
@@ -1150,7 +1504,7 @@ def main() -> int:
             "max_abs_err": checked["err"][k], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "host_call_ms": round_trip.get(k),
+            "shape": row["shape"], "host_call_ms": round_trip["1"].get(k),
             "large": checked["timed"].get(k + "@large"),
         })
         if k == "ssd_scan":

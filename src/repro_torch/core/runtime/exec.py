@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...kernels.bloom.ops import probe_bloom_filter
-from ...kernels.registry import engine_device, host_call, resolve
+from ...kernels.registry import engine_device, host_call, resolve, upload
 from ..acid import AcidTable
 from ..bloomfilter import BloomFilter
 from ..metastore import Metastore, Snapshot, WriteIdList
@@ -368,17 +368,22 @@ class _KernelBloomProbe:
     """Adapter routing runtime-filter bloom probes through the kernel
     registry (``bloom_probe`` under ``engine: cuda|ref``, on the query's
     device) while presenting the ``might_contain`` surface the scan I/O
-    layer expects; every probe is one traced kernel dispatch."""
+    layer expects; every probe is one traced kernel dispatch.  The filter's
+    bitset goes to the device once, here, and every stripe's probe reads
+    it there."""
 
     def __init__(self, bf: BloomFilter, ctx: ExecContext):
         self._bf = bf
         self._ctx = ctx
+        self._bits = upload(bf.bits.view(np.uint32), ctx.device,
+                            "bloom_probe")
 
     def might_contain(self, values: np.ndarray) -> np.ndarray:
         ctx = self._ctx
         if ctx.trace is not None:
             ctx.trace.kernel_dispatch("bloom_probe", ctx.engine)
-        return probe_bloom_filter(self._bf, values, ctx.engine, ctx.device)
+        return probe_bloom_filter(self._bf, values, ctx.engine, ctx.device,
+                                  bits=self._bits)
 
 
 class _BuildTable:
@@ -388,13 +393,19 @@ class _BuildTable:
     uniques); every probe chunk then maps its key values into build codes —
     via the ``key_lookup`` kernel under ``engine: cuda|ref`` — so probing
     is O(chunk) instead of re-factorizing the whole build side per morsel.
+    Under a kernel engine each numeric key column's dictionary is cast to
+    float32 and tested once, here, and kept on the query's device for the
+    kernel; a column whose dictionary float32 does not hold exactly takes
+    the numpy path.
     """
 
     def __init__(self, rb: VectorBatch, right_keys, left_keys,
                  lproto: VectorBatch, ctx: ExecContext):
         self.ctx = ctx
         self.left_keys = list(left_keys)
-        self.keys = []  # (uniq_sorted, cast, cardinality+1) per key column
+        # (uniq_sorted, cast, cardinality+1, device dictionary or None) per
+        # key column
+        self.keys = []
         rc = None
         for rk, lk in zip(right_keys, left_keys):
             rv, lv = rb.cols[rk], lproto.cols[lk]
@@ -408,7 +419,7 @@ class _BuildTable:
                 cast = None
             uniq, inv = np.unique(rv, return_inverse=True)
             k = np.int64(len(uniq) + 1)
-            self.keys.append((uniq, cast, k))
+            self.keys.append((uniq, cast, k, self._dictionary(uniq)))
             inv = inv.astype(np.int64)
             rc = inv if rc is None else rc * k + inv
         self.order = np.argsort(rc, kind="stable")
@@ -417,13 +428,13 @@ class _BuildTable:
     def probe_codes(self, lb: VectorBatch) -> np.ndarray:
         """Combined build codes for a probe chunk; -1 marks no-match rows."""
         lc, valid = None, None
-        for (uniq, cast, k), lk in zip(self.keys, self.left_keys):
+        for (uniq, cast, k, dictionary), lk in zip(self.keys, self.left_keys):
             v = lb.cols[lk]
             if cast is str:
                 v = v.astype(str)
             elif cast is float:
                 v = v.astype(np.float64)
-            codes = self._lookup(uniq, v)
+            codes = self._lookup(uniq, dictionary, v)
             ok = codes >= 0
             valid = ok if valid is None else (valid & ok)
             c = np.where(ok, codes, 0)
@@ -432,17 +443,29 @@ class _BuildTable:
             return np.full(lb.num_rows, -1, dtype=np.int64)
         return np.where(valid, lc, np.int64(-1))
 
-    def _lookup(self, uniq: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    def _dictionary(self, uniq: np.ndarray):
+        """The key column's dictionary as float32 on the query's device,
+        for the ``key_lookup`` kernel; None under ``engine: auto``, for
+        non-numeric keys, and where the cast does not round-trip (the
+        kernel's contract is float32)."""
+        if (self.ctx.engine == "auto" or len(uniq) == 0
+                or uniq.dtype.kind not in "iuf"):
+            return None
+        u32 = uniq.astype(np.float32)
+        if not np.array_equal(u32.astype(uniq.dtype), uniq):
+            return None
+        return upload(u32, self.ctx.device, "key_lookup")
+
+    def _lookup(self, uniq: np.ndarray, dictionary,
+                vals: np.ndarray) -> np.ndarray:
         if len(uniq) == 0:
             return np.full(len(vals), -1, dtype=np.int64)
-        if (self.ctx.engine != "auto" and uniq.dtype.kind in "iuf"
-                and vals.dtype.kind in "iuf"):
-            # kernel contract is float32: only when the cast round-trips
-            u32, v32 = uniq.astype(np.float32), vals.astype(np.float32)
-            if (np.array_equal(u32.astype(uniq.dtype), uniq)
-                    and np.array_equal(v32.astype(vals.dtype), vals)):
+        if dictionary is not None and vals.dtype.kind in "iuf":
+            # the probe values' float32 cast must round-trip too
+            v32 = vals.astype(np.float32)
+            if np.array_equal(v32.astype(vals.dtype), vals):
                 fn = self.ctx.kernel("key_lookup")
-                return np.asarray(fn(u32, v32)).astype(np.int64)
+                return np.asarray(fn(dictionary, v32)).astype(np.int64)
         idx = np.minimum(np.searchsorted(uniq, vals), len(uniq) - 1)
         found = uniq[idx] == vals
         return np.where(found, idx, -1).astype(np.int64)

@@ -68,3 +68,11 @@ REPRO_API int filter_eval_launch(const void* const* cols, const int* ops,
       a, n, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+REPRO_API int filter_eval_trip(REPRO_TRIP_PARAMS, const void* const* cols,
+                                const int* ops, const float* lits, int k,
+                                int64_t n, void* out, void* stream) {
+  return repro::trip(REPRO_TRIP_ARGS, stream, [&] {
+    return filter_eval_launch(cols, ops, lits, k, n, out, stream);
+  });
+}

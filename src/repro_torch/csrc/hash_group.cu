@@ -244,3 +244,21 @@ REPRO_API int hash_group_minmax_launch(const void* codes, const void* vals,
   minmax_decode<<<fill_blocks, repro::kThreads, 0, s>>>(mi, ma, g32);
   return static_cast<int>(cudaGetLastError());
 }
+
+REPRO_API int hash_group_trip(REPRO_TRIP_PARAMS, const void* codes,
+                               const void* vals, int64_t n, int64_t g,
+                               void* sums, void* counts, void* stream) {
+  return repro::trip(REPRO_TRIP_ARGS, stream, [&] {
+    return hash_group_launch(codes, vals, n, g, sums, counts, stream);
+  });
+}
+
+REPRO_API int hash_group_minmax_trip(REPRO_TRIP_PARAMS, const void* codes,
+                                      const void* vals, int64_t n, int64_t g,
+                                      void* mins, void* maxs, int one_block,
+                                      void* stream) {
+  return repro::trip(REPRO_TRIP_ARGS, stream, [&] {
+    return hash_group_minmax_launch(codes, vals, n, g, mins, maxs, one_block,
+                                    stream);
+  });
+}

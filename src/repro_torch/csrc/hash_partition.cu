@@ -73,3 +73,11 @@ REPRO_API int hash_partition_launch(const void* const* cols, int k, int64_t n,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+
+REPRO_API int hash_partition_trip(REPRO_TRIP_PARAMS, const void* const* cols,
+                                   int k, int64_t n, int num_partitions,
+                                   void* out, void* stream) {
+  return repro::trip(REPRO_TRIP_ARGS, stream, [&] {
+    return hash_partition_launch(cols, k, n, num_partitions, out, stream);
+  });
+}

@@ -72,7 +72,18 @@ _SIGNATURES = {
     # (float32, head_dim a multiple of 8 up to 128)
     "flash_attention_tf32_launch": [_P, _P, _P, _P, _I64, _I64, _I32,
                                     ctypes.c_float, _I32, _P],
+    # stream (an empty kernel: the floor of one executor call)
+    "repro_empty_launch": [_P],
 }
+# plan, host_in, dev_in, in_bytes, dev_out, host_out, out_bytes: the
+# leading arguments of each *_trip entry point, which copies a morsel in,
+# launches as its *_launch twin does with the arguments that follow, copies
+# the results back and synchronises the stream (csrc/common.cuh: trip)
+_TRIP = [_P, _P, _P, _I64, _P, _P, _I64]
+TRIPS = ("filter_eval", "key_lookup", "hash_group", "hash_group_minmax",
+         "hash_partition", "bloom_probe", "repro_empty")
+_SIGNATURES.update({f"{k}_trip": _TRIP + _SIGNATURES[f"{k}_launch"]
+                    for k in TRIPS})
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -143,6 +154,8 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
+    if _LIB is not None:  # every kernel call asks: no lock once loaded
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))

@@ -7,13 +7,25 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..registry import count_launch, register, resolve
+from ..registry import count_launch, register, register_trip, resolve, trip
 from .ref import filter_eval_ref
 
 MAX_COLS = 8  # the kernel's by-value argument holds this many columns
+
+
+def _check(columns, ops, lits) -> int:
+    """The rows of the columns, checked as the wrapper and the trip take
+    them."""
+    if not columns or not len(columns) == len(ops) == len(lits):
+        raise ValueError("filter_eval needs K >= 1 columns, ops and lits")
+    n = columns[0].shape[0]
+    if any(c.shape != (n,) for c in columns):
+        raise ValueError("filter_eval columns must be 1-D of one length")
+    return n
 
 
 @register("filter_eval", "cuda")
@@ -25,29 +37,48 @@ def filter_eval_cuda(columns, ops: tuple, lits: tuple):
     CPU tensors and empty inputs take the plain version; CUDA tensors
     launch the kernel."""
     columns = list(columns)
-    if not columns or not len(columns) == len(ops) == len(lits):
-        raise ValueError("filter_eval needs K >= 1 columns, ops and lits")
-    n = columns[0].shape[0]
-    if any(c.shape != (n,) for c in columns):
-        raise ValueError("filter_eval columns must be 1-D of one length")
+    n = _check(columns, ops, lits)
     if not _build.takes_kernel(*columns) or n == 0:
         return filter_eval_ref(columns, ops, lits)
-    k = len(columns)
+    cols = [c.to(torch.float32).contiguous() for c in columns]
+    out = torch.empty(n, dtype=torch.bool, device=cols[0].device)
+    err = _build.library().filter_eval_launch(
+        *_launch_args([c.data_ptr() for c in cols], ops, lits), n,
+        out.data_ptr(), _build.stream(out))
+    _build.check(err, "filter_eval")
+    count_launch("filter_eval")
+    return out
+
+
+def _launch_args(col_ptrs, ops, lits) -> tuple:
+    """filter_eval_launch's host arrays of column pointers, op codes and
+    literals, and K."""
+    k = len(col_ptrs)
     if k > MAX_COLS:
         raise ValueError(f"filter_eval kernel takes at most {MAX_COLS} "
                          f"columns, got {k}")
     if any(op not in range(6) for op in ops):
         raise ValueError(f"unknown filter op code in {ops}")
-    cols = [c.to(torch.float32).contiguous() for c in columns]
-    out = torch.empty(n, dtype=torch.bool, device=cols[0].device)
-    err = _build.library().filter_eval_launch(
-        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-        (ctypes.c_int * k)(*[int(op) for op in ops]),
-        (ctypes.c_float * k)(*[float(lit) for lit in lits]),
-        k, n, out.data_ptr(), _build.stream(out))
-    _build.check(err, "filter_eval")
+    return ((ctypes.c_void_p * k)(*col_ptrs),
+            (ctypes.c_int * k)(*[int(op) for op in ops]),
+            (ctypes.c_float * k)(*[float(lit) for lit in lits]), k)
+
+
+def filter_eval_trip(device, columns, ops: tuple, lits: tuple):
+    """The executor's call on the card in one trip (registry.trip): numpy
+    columns in (cast to float32 here, as the wrapper casts them on the
+    card), filter_eval_cuda's mask as a numpy bool array out."""
+    cols = [c.astype(np.float32, copy=False) for c in columns]
+    n = _check(cols, ops, lits)
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    (out,) = trip("filter_eval", device, cols, [(np.bool_, (n,))],
+                  lambda i, o: (*_launch_args(i, ops, lits), n, o[0]))
     count_launch("filter_eval")
     return out
+
+
+register_trip(filter_eval_cuda, filter_eval_trip)
 
 
 register("filter_eval", "ref", filter_eval_ref)

@@ -5,10 +5,11 @@ The CUDA kernels are in ``csrc/hash_group.cu``; they replace the TPU kernels
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..registry import count_launch, register, resolve
+from ..registry import count_launch, register, register_trip, resolve, trip
 from .ref import hash_group_minmax_ref, hash_group_ref
 
 # hash_group_minmax: up to this many rows one block takes the whole call in
@@ -84,6 +85,53 @@ def launch_minmax(codes, values, num_groups: int, path: str):
     return out
 
 
+def _host_inputs(codes, values, num_groups: int):
+    if codes.ndim != 1 or codes.shape != values.shape:
+        raise ValueError("codes and values must be 1-D of one length")
+    if num_groups < 0:
+        raise ValueError(f"num_groups must be >= 0, got {num_groups}")
+    return (codes.astype(np.int32, copy=False),
+            values.astype(np.float32, copy=False))
+
+
+def _plain(ref, codes, values, num_groups: int):
+    return tuple(t.numpy() for t in ref(torch.from_numpy(codes),
+                                        torch.from_numpy(values), num_groups))
+
+
+def hash_group_trip(device, codes, values, num_groups: int):
+    """The executor's call on the card in one trip (registry.trip): numpy
+    codes and values in, hash_group_cuda's (sums, counts) as numpy out."""
+    codes, values = _host_inputs(codes, values, num_groups)
+    n = codes.shape[0]
+    if n == 0 or num_groups == 0:
+        return _plain(hash_group_ref, codes, values, num_groups)
+    sums, counts = trip("hash_group", device, [codes, values],
+                        [(np.float32, (num_groups,))] * 2,
+                        lambda i, o: (i[0], i[1], n, num_groups, o[0], o[1]))
+    count_launch("hash_group")
+    return sums, counts
+
+
+def hash_group_minmax_trip(device, codes, values, num_groups: int):
+    """The executor's call on the card in one trip (registry.trip): numpy
+    codes and values in, hash_group_minmax_cuda's (mins, maxs) out."""
+    codes, values = _host_inputs(codes, values, num_groups)
+    n = codes.shape[0]
+    if n == 0 or num_groups == 0:
+        return _plain(hash_group_minmax_ref, codes, values, num_groups)
+    path = minmax_path(n, num_groups)
+    mins, maxs = trip("hash_group_minmax", device, [codes, values],
+                      [(np.float32, (num_groups,))] * 2,
+                      lambda i, o: (i[0], i[1], n, num_groups, o[0], o[1],
+                                    int(path == "one_block")))
+    count_launch("hash_group_minmax")
+    count_launch(f"hash_group_minmax.{path}")
+    return mins, maxs
+
+
+register_trip(hash_group_cuda, hash_group_trip)
+register_trip(hash_group_minmax_cuda, hash_group_minmax_trip)
 register("hash_group", "ref", hash_group_ref)
 register("hash_group_minmax", "ref", hash_group_minmax_ref)
 

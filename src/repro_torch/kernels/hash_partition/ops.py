@@ -8,13 +8,39 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..registry import count_launch, register, resolve
+from ..registry import count_launch, register, register_trip, resolve, trip
 from .ref import hash_partition_ref
 
 MAX_COLS = 8  # the kernel's by-value argument holds this many columns
+
+
+def _check(cols, num_partitions: int) -> int:
+    """The rows of the key columns, checked as the wrapper and the trip
+    take them."""
+    if not cols:
+        raise ValueError("hash_partition needs K >= 1 key columns")
+    if num_partitions < 1:
+        raise ValueError(f"num_partitions must be >= 1, got {num_partitions}")
+    n = cols[0].shape[0]
+    if any(c.shape != (n,) for c in cols):
+        raise ValueError("hash_partition columns must be 1-D of one length")
+    return n
+
+
+def _check_kernel(cols, float32) -> int:
+    """K, checked as the kernel takes it, with columns of ``float32``."""
+    k = len(cols)
+    if k > MAX_COLS:
+        raise ValueError(f"hash_partition kernel takes at most {MAX_COLS} "
+                         f"key columns, got {k}")
+    if any(c.dtype != float32 for c in cols):
+        raise ValueError("hash_partition kernel takes float32 key columns; "
+                         "convert on the host as partition_codes does")
+    return k
 
 
 @register("hash_partition", "cuda")
@@ -27,22 +53,10 @@ def hash_partition_cuda(cols, num_partitions: int):
     host path converts them: a float64 NaN converted on the card would get
     another payload than numpy gives it, and so another lane."""
     cols = tuple(cols)
-    if not cols:
-        raise ValueError("hash_partition needs K >= 1 key columns")
-    if num_partitions < 1:
-        raise ValueError(f"num_partitions must be >= 1, got {num_partitions}")
-    n = cols[0].shape[0]
-    if any(c.shape != (n,) for c in cols):
-        raise ValueError("hash_partition columns must be 1-D of one length")
+    n = _check(cols, num_partitions)
     if not _build.takes_kernel(*cols) or n == 0:
         return hash_partition_ref(cols, num_partitions)
-    k = len(cols)
-    if k > MAX_COLS:
-        raise ValueError(f"hash_partition kernel takes at most {MAX_COLS} "
-                         f"key columns, got {k}")
-    if any(c.dtype != torch.float32 for c in cols):
-        raise ValueError("hash_partition kernel takes float32 key columns; "
-                         "convert on the host as partition_codes does")
+    k = _check_kernel(cols, torch.float32)
     cols = [c.contiguous() for c in cols]
     out = torch.empty(n, dtype=torch.int32, device=cols[0].device)
     err = _build.library().hash_partition_launch(
@@ -53,6 +67,23 @@ def hash_partition_cuda(cols, num_partitions: int):
     return out
 
 
+def hash_partition_trip(device, cols, num_partitions: int):
+    """The executor's call on the card in one trip (registry.trip): float32
+    numpy key columns in (converted on the host, as for the wrapper),
+    hash_partition_cuda's lanes as a numpy int32 array out."""
+    cols = tuple(cols)
+    n = _check(cols, num_partitions)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32)
+    k = _check_kernel(cols, np.float32)
+    (out,) = trip("hash_partition", device, list(cols), [(np.int32, (n,))],
+                  lambda i, o: ((ctypes.c_void_p * k)(*i), k, n,
+                                int(num_partitions), o[0]))
+    count_launch("hash_partition")
+    return out
+
+
+register_trip(hash_partition_cuda, hash_partition_trip)
 register("hash_partition", "ref", hash_partition_ref)
 
 

@@ -15,17 +15,32 @@ backend by name + engine selector:
                  the numpy host paths" and never resolves a kernel.
 
 Registered functions take and return tensors.  :func:`host_call` adapts one
-to the executor's numpy-in/numpy-out contract: it copies every array to the
-query's device and brings the result back (one round trip per morsel).
+to the executor's numpy-in/numpy-out contract (one round trip per morsel).
+On the CPU it wraps the arrays as tensors and the results as arrays.  On
+the card each kernel's call is one native call, its *trip*
+(:func:`trip`), made through ctypes, which releases the interpreter lock
+once for all of it: the morsel's arrays go into the calling thread's
+page-locked staging buffer and up in one asynchronous copy on the thread's
+own stream, the kernel launches there, the results come back into
+page-locked memory, that stream alone is synchronised, and the results are
+copied into new numpy arrays.  No torch operation runs per morsel: under
+the executor's four threads every release of the interpreter lock costs a
+hand-over to another thread, and a call that released it at each tensor
+operation spent most of its time waiting for it.  Build-side state that does not change while a join or a
+scan runs (a join's dictionary, a runtime filter's bitset) is made once on
+the device by :func:`upload` and passed to the calls as a tensor.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from . import _build
 
 VALID_ENGINES = ("auto", "cuda", "pallas", "ref")
 
@@ -42,6 +57,15 @@ _DISPATCHES: Dict[str, int] = {}
 # concurrently, so the read-modify-write holds a lock)
 _LAUNCHES: Dict[str, int] = {}
 _LAUNCH_LOCK = threading.Lock()
+# process-wide tally per kernel of build-side state made on a device by
+# upload(): one per join dictionary or runtime filter, never per morsel
+_UPLOADS: Dict[str, int] = {}
+# tensor kernel -> its executor call on the card in one trip (trip())
+_TRIP_CALLS: Dict[Callable, Callable] = {}
+# staging buffers are this many bytes at least, and every array packed into
+# one starts at a multiple of _ALIGN (the kernels' 16-byte vector loads)
+_MIN_STAGING = 1 << 16
+_ALIGN = 128
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -63,6 +87,23 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     with _LAUNCH_LOCK:
         _LAUNCHES.clear()
+
+
+def count_upload(kernel: str) -> None:
+    with _LAUNCH_LOCK:
+        _UPLOADS[kernel] = _UPLOADS.get(kernel, 0) + 1
+
+
+def upload_counts() -> Dict[str, int]:
+    """Snapshot of per-kernel build-side uploads (:func:`upload`) this
+    process."""
+    with _LAUNCH_LOCK:
+        return dict(_UPLOADS)
+
+
+def reset_upload_counts() -> None:
+    with _LAUNCH_LOCK:
+        _UPLOADS.clear()
 
 
 @functools.cache
@@ -131,6 +172,133 @@ def resolve(kernel: str, engine: str = "auto") -> Callable:
     return impls[backend]
 
 
+def _require_gpu() -> None:
+    if not on_gpu():
+        raise RuntimeError(
+            "engine 'cuda' needs an NVIDIA GPU of compute capability "
+            ">= 9.0 and none is present; connect with engine='ref' "
+            "(torch on the CPU) or engine='auto' (numpy host paths)")
+
+
+def upload(array: np.ndarray, device: torch.device,
+           kernel: str) -> torch.Tensor:
+    """Build-side state of ``kernel``'s calls (a join's dictionary, a
+    runtime filter's bitset) as a tensor on ``device``, made once and
+    counted in :func:`upload_counts`.  On the card the copy has completed
+    when this returns, so a stream of any thread may read the tensor; its
+    holder keeps it alive past every call that reads it, since each call
+    synchronises its stream before it returns."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        _require_gpu()
+        t = t.to(device)
+        torch.cuda.current_stream(device).synchronize()
+    count_upload(kernel)
+    return t
+
+
+def register_trip(fn: Callable, call: Callable) -> None:
+    """``call(device, *args)`` is ``fn``'s executor call on the card in one
+    trip: numpy arrays (and tensors from :func:`upload`) in, numpy arrays
+    out, as :func:`host_call` makes it for ``fn``."""
+    _TRIP_CALLS[fn] = call
+
+
+class _Lane(threading.local):
+    """One thread's stream on the card and its staging buffers: page-locked
+    host buffers for a call's inputs and results, and one device buffer for
+    both.  Each grows to the thread's largest call and is reused by its
+    next call, which starts after the previous one synchronised."""
+
+    def __init__(self):
+        self.device = None
+
+    def ready(self, device: torch.device, in_bytes: int,
+              out_bytes: int) -> None:
+        if device != self.device:
+            self.device = device
+            self.stream = torch.cuda.Stream(device=device)
+            self.handle = self.stream.cuda_stream
+            self.sizes = dict.fromkeys(("host_in", "host_out", "dev"), 0)
+        need = {"host_in": in_bytes, "host_out": out_bytes,
+                "dev": in_bytes + out_bytes}
+        for which, nbytes in need.items():
+            if nbytes > self.sizes[which]:
+                self._grow(which, max(nbytes, _MIN_STAGING,
+                                      2 * self.sizes[which]))
+
+    def _grow(self, which: str, size: int) -> None:
+        if which == "dev":
+            with torch.cuda.stream(self.stream):
+                buf = torch.empty(size, dtype=torch.uint8,
+                                  device=self.device)
+        else:
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        setattr(self, which, buf)
+        setattr(self, which + "_ptr", buf.data_ptr())
+        self.sizes[which] = size
+
+
+_LANE = _Lane()
+
+
+def _offsets(sizes) -> tuple:
+    """Start of each of ``sizes`` bytes packed at multiples of _ALIGN, and
+    the bytes in all."""
+    starts, end = [], 0
+    for nbytes in sizes:
+        starts.append(end)
+        end += -(-nbytes // _ALIGN) * _ALIGN
+    return starts, end
+
+
+def _run(entry: str, *args) -> None:
+    """The one native call of a trip; raises on a CUDA error."""
+    _build.check(getattr(_build.library(), entry)(*args), entry)
+
+
+def trip(kernel: str, device: torch.device, inputs, outs,
+         launch_args: Callable) -> list:
+    """One executor call of ``kernel`` on the card, by its C entry point
+    ``<kernel>_trip`` (csrc/common.cuh: trip): each numpy array of
+    ``inputs`` goes up through the thread's staging buffers in one copy,
+    each tensor (build-side state from :func:`upload`) is read where it
+    lies; ``outs`` lists each result's (dtype, shape);
+    ``launch_args(input_pointers, output_pointers)`` gives the arguments of
+    ``<kernel>_launch`` before its stream.  Returns the results as new
+    numpy arrays."""
+    arrays = [np.ascontiguousarray(x) for x in inputs
+              if isinstance(x, np.ndarray)]
+    results = [np.empty(shape, dtype) for dtype, shape in outs]
+    starts, in_bytes = _offsets(a.nbytes for a in arrays)
+    out_starts, out_bytes = _offsets(r.nbytes for r in results)
+    lane = _LANE
+    lane.ready(device, in_bytes, out_bytes)
+    plan = [len(arrays)]
+    for a, at in zip(arrays, starts):
+        plan += (a.ctypes.data, at, a.nbytes)
+    plan.append(len(results))
+    for r, at in zip(results, out_starts):
+        plan += (r.ctypes.data, at, r.nbytes)
+    base = lane.dev_ptr
+    staged = iter(starts)
+    ptrs = []
+    for x in inputs:
+        if isinstance(x, np.ndarray):
+            ptrs.append(base + next(staged))
+        elif x.is_cuda:
+            ptrs.append(x.data_ptr())
+        else:
+            raise ValueError(f"{kernel}: a tensor argument must lie on the "
+                             f"card, got one on {x.device}")
+    out_base = base + in_bytes
+    _run(f"{kernel}_trip", (ctypes.c_int64 * len(plan))(*plan),
+         lane.host_in_ptr, base, in_bytes, out_base, lane.host_out_ptr,
+         out_bytes, *launch_args(ptrs, [out_base + o for o in out_starts]),
+         lane.handle)
+    return results
+
+
 def _to_device(x, device: torch.device):
     if isinstance(x, np.ndarray):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -149,19 +317,23 @@ def _to_host(x):
 
 def host_call(fn: Callable, device: torch.device) -> Callable:
     """Wrap a tensor kernel for numpy callers: every array argument (also
-    inside tuples) is copied to ``device``, every tensor result back to a
-    numpy array.  A CUDA device without a usable GPU raises here, so a
-    query under ``engine: cuda`` never runs on the CPU unnoticed."""
+    inside tuples) goes to ``device``, every result comes back as a numpy
+    array; tensor arguments (build-side state from :func:`upload`) pass as
+    they are.  On the card the call is ``fn``'s trip (see the module's
+    docstring).  A CUDA device without a usable GPU raises here, so a query
+    under ``engine: cuda`` never runs on the CPU unnoticed."""
+    if device.type != "cuda":
+        return lambda *args: _to_host(fn(*_to_device(args, device)))
+    call = _TRIP_CALLS.get(fn)
+    if call is None:
+        raise ValueError(f"{getattr(fn, '__name__', fn)!r} has no one-trip "
+                         "call on the card (registry.register_trip)")
 
-    def call(*args):
-        if device.type == "cuda" and not on_gpu():
-            raise RuntimeError(
-                "engine 'cuda' needs an NVIDIA GPU of compute capability "
-                ">= 9.0 and none is present; connect with engine='ref' "
-                "(torch on the CPU) or engine='auto' (numpy host paths)")
-        return _to_host(fn(*_to_device(args, device)))
+    def on_card(*args):
+        _require_gpu()
+        return call(device, *args)
 
-    return call
+    return on_card
 
 
 def _import_all() -> None:

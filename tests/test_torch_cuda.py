@@ -67,8 +67,16 @@ def test_cuda_filter_eval_bit_exact(cuda, n, ncols):
     assert torch.equal(got.cpu(), exp)
 
 
+# the path's shapes (1,024-row morsels, 8,192-row stripes) and 4M rows;
+# either side of the four-rows-a-thread threshold (135,168) with ragged
+# tails; the largest staged dictionary (12,288 keys) and the first one
+# searched in place
 @pytest.mark.parametrize("g,n", [(200, 1024), (2556, 1024), (1, 5),
-                                 (20_000, 100_000), (2556, 3_000_000)])
+                                 (20_000, 100_000), (2556, 3_000_000),
+                                 (2556, 8192), (2556, 4_000_000),
+                                 (2556, 135_167), (2556, 135_171),
+                                 (3, 1), (12_288, 1024), (12_289, 1024),
+                                 (12_289, 300_001)])
 def test_cuda_key_lookup_exact(cuda, g, n):
     rng = np.random.default_rng(g)
     uniq = np.unique(rng.integers(0, 3 * g + 1, g)).astype(np.float32)
@@ -140,10 +148,15 @@ def test_cuda_hash_partition_rejects_bad_input(cuda):
 @pytest.mark.parametrize("num_bits,k,n", [(64, 6, 8192), (512, 6, 8192),
                                           (32768, 6, 8192), (1 << 20, 6, 8192),
                                           (4096, 1, 1000), (4096, 8, 1000),
-                                          (32768, 6, 3_000_000)])
+                                          (32768, 6, 3_000_000),
+                                          (512, 6, 4_000_000),
+                                          (32768, 6, 4_000_000),
+                                          (64, 6, 135_171), (64, 3, 7),
+                                          (1 << 20, 6, 300_001)])
 def test_cuda_bloom_probe_exact(cuda, num_bits, k, n):
     """Equal to the plain version and BloomFilter.might_contain; 2**20 bits
-    takes the device-memory branch, the rest stage the bitset."""
+    and calls of 135,168 rows or more read the bitset in place, the rest
+    stage it (64 bits: no whole 16-byte unit for the bulk copy)."""
     rng = np.random.default_rng(num_bits + k)
     bf = BloomFilter(num_bits, k)
     bf.add(rng.integers(0, 40_000, max(5, num_bits // 10)))
@@ -159,6 +172,151 @@ def test_cuda_bloom_probe_exact(cuda, num_bits, k, n):
     assert np.array_equal(
         probe_bloom_filter(bf, queries, engine="cuda"),
         bf.might_contain(queries))
+
+
+@pytest.mark.parametrize("g,n", [(2556, 1024), (2556, 200_001)])
+def test_cuda_key_lookup_unaligned_views(cuda, g, n):
+    """Views that start 4 bytes into their storage: the dictionary is
+    copied to an aligned buffer for the bulk copy, the probe and output
+    take the one-row-a-thread loads."""
+    rng = np.random.default_rng(n)
+    uniq = np.arange(g + 1, dtype=np.float32) * 3
+    probe = rng.integers(-5, 3 * g + 5, n + 1).astype(np.float32)
+    d, p = _t(uniq, cuda)[1:], _t(probe, cuda)[1:]
+    assert d.data_ptr() % 16 and p.data_ptr() % 16
+    got = key_lookup_cuda(d, p)
+    assert torch.equal(got.cpu(), key_lookup_ref(_t(uniq)[1:], _t(probe)[1:]))
+
+
+def test_cuda_bloom_probe_unaligned_views(cuda):
+    rng = np.random.default_rng(5)
+    bf = BloomFilter(4096, 6)
+    bf.add(rng.integers(0, 9000, 400))
+    queries = rng.integers(0, 9000, 200_001)
+    h = hash_values(queries)
+    lo = (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (h >> np.uint64(32)).astype(np.uint32)
+    words = bf.bits.view(np.uint32)
+    pad = np.zeros(1, np.uint32)
+    h1, h2, bits = (_t(np.concatenate([pad, a]), cuda)[1:]
+                    for a in (lo, hi, words))
+    got = bloom_probe_cuda(h1, h2, bits, 6, 4096)
+    assert np.array_equal(_np(got), bf.might_contain(queries))
+
+
+def _path_calls(rng, device, morsels):
+    """key_lookup, bloom_probe, hash_group and filter_eval as the executor
+    calls them (numpy morsels; the dictionary and bitset made once by
+    registry.upload), each with its plain version's answers."""
+    uniq = np.arange(0, 2556 * 3, 3, dtype=np.float32)
+    bf = BloomFilter(32768, 6)
+    bf.add(rng.integers(0, 20_000, 3000))
+    dictionary = registry.upload(uniq, device, "key_lookup")
+    bits = registry.upload(bf.bits.view(np.uint32), device, "bloom_probe")
+    calls = []
+    for i in range(morsels):
+        n = int(rng.integers(1, 8193))
+        probe = rng.integers(-10, 2556 * 3 + 10, n).astype(np.float32)
+        calls.append(("key_lookup", (dictionary, probe),
+                      _np(key_lookup_ref(_t(uniq), _t(probe)))))
+        h = hash_values(rng.integers(0, 20_000, n))
+        h1 = (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        h2 = (h >> np.uint64(32)).astype(np.uint32)
+        calls.append(("bloom_probe", (h1, h2, bits, 6, 32768),
+                      _np(bloom_probe_ref(_t(h1), _t(h2),
+                                          _t(bf.bits.view(np.uint32)), 6,
+                                          32768))))
+        codes = rng.integers(-1, 7, n).astype(np.int32)
+        vals = rng.integers(1, 50, n).astype(np.float32)
+        calls.append(("hash_group", (codes, vals, 7),
+                      tuple(_np(t) for t in hash_group_ref(
+                          _t(codes), _t(vals), 7))))
+        col = rng.integers(0, 100, n).astype(np.float32)
+        calls.append(("filter_eval", ((col,), (i % 6,), (50.0,)),
+                      _np(filter_eval_ref([_t(col)], (i % 6,), (50.0,)))))
+    return calls
+
+
+def _same(got, exp):
+    if isinstance(exp, tuple):
+        return all(_same(g, e) for g, e in zip(got, exp))
+    return got.dtype == exp.dtype and np.array_equal(got, exp)
+
+
+def test_cuda_host_call_four_threads_equal_plain(cuda):
+    """Four threads, each with its own stream and staging buffers, make
+    many calls of morsels of random length at once; every answer equals
+    the plain version's (float sums of integers: exact)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fns = {k: registry.host_call(registry.resolve(k, "cuda"), cuda)
+           for k in ("key_lookup", "bloom_probe", "hash_group",
+                     "filter_eval")}
+    work = [_path_calls(np.random.default_rng(t), cuda, 25)
+            for t in range(4)]
+
+    def run(calls):
+        return [(k, fns[k](*args), exp) for k, args, exp in calls]
+
+    with ThreadPoolExecutor(4) as pool:
+        done = list(pool.map(run, work))
+    for results in done:
+        for k, got, exp in results:
+            assert _same(got, exp), k
+
+
+def test_cuda_host_call_results_are_not_the_staging_buffer(cuda):
+    """A result stays as it was after the same thread's next call, which
+    reuses the staging buffers."""
+    rng = np.random.default_rng(3)
+    dictionary = registry.upload(np.arange(100, dtype=np.float32), cuda,
+                                 "key_lookup")
+    call = registry.host_call(registry.resolve("key_lookup", "cuda"), cuda)
+    first = call(dictionary, np.arange(50, dtype=np.float32))
+    kept = first.copy()
+    second = call(dictionary, rng.integers(200, 300, 50).astype(np.float32))
+    assert np.array_equal(first, kept) and (second == -1).all()
+    assert not np.shares_memory(first, second)
+
+
+def test_cuda_state_uploaded_on_one_thread_probed_on_another(cuda):
+    """The dictionary and bitset uploaded by one thread (on its stream) are
+    complete for the calls of threads that did not make them."""
+    import threading
+
+    rng = np.random.default_rng(11)
+    uniq = np.unique(rng.integers(0, 100_000, 2556)).astype(np.float32)
+    bf = BloomFilter(32768, 6)
+    bf.add(rng.integers(0, 50_000, 4000))
+    made = {}
+
+    def build():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            made["dict"] = registry.upload(uniq, cuda, "key_lookup")
+            made["bits"] = registry.upload(bf.bits.view(np.uint32), cuda,
+                                           "bloom_probe")
+
+    t = threading.Thread(target=build)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    probe = rng.integers(0, 100_000, 8192).astype(np.float32)
+    queries = rng.integers(0, 50_000, 8192)
+    lookup = registry.host_call(registry.resolve("key_lookup", "cuda"), cuda)
+    got = {}
+
+    def use():
+        got["codes"] = lookup(made["dict"], probe)
+        got["mask"] = probe_bloom_filter(bf, queries, "cuda", cuda,
+                                         bits=made["bits"])
+
+    t = threading.Thread(target=use)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert np.array_equal(got["codes"],
+                          _np(key_lookup_ref(_t(uniq), _t(probe))))
+    assert np.array_equal(got["mask"], bf.might_contain(queries))
 
 
 def test_cuda_new_kernels_count_launches(cuda):

@@ -9,17 +9,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and spills (ptxas -v; bfloat16 and float32 in three TF32 terms) and
      the HGMMA instructions in their SASS (cuobjdump), which must be more
      than 0; the same for ssd_scan's four passes, with the HMMA (mma.sync)
-     instructions of the three that multiply;
+     instructions of the three that multiply; and hash_group's atomic
+     instructions;
   3. hold each kernel against its plain torch version on the card, at the
      main path's shapes (1024-row morsels and 8192-row stripes, SSB's
      dictionaries and runtime bloom filters, few to thousands of groups,
      four shuffle lanes) and at a shape of millions of rows, and time the
      kernel, the plain version, one PyTorch library call computing the same
      function where there is one (a yardstick only; the port never calls
-     it) and the bound; hash_partition is also held against the numpy host
-     path and bloom_probe against BloomFilter.might_contain, bit-exact;
-     hash_group_minmax's two paths are timed against each other at its
-     one-block limit, and flash_attention's three routes at the path shape
+     it) and the bound, and each SQL kernel also from a CUDA graph (the
+     card's time without the host's issue time); hash_partition is also
+     held against the numpy host path and bloom_probe against
+     BloomFilter.might_contain, bit-exact; filter_eval on views at offsets
+     0-3 for K 1-8; hash_group's sums at the path's shape against the CPU
+     emulation of the morsel path's order, bit for bit over 100 calls, its
+     limits equal to the built kernel's, its morsel and grid paths timed
+     against each other from 1,024 to 65,536 rows and its grid path at 4M
+     rows; hash_group_minmax's two paths are timed
+     against each other at its one-block limit, and flash_attention's
+     three routes at the path shape
      (bfloat16 on the tensor cores beside the CUDA-core kernel on the same
      inputs; float32 on the tensor cores in three TF32 terms beside the
      CUDA-core kernel, each float32 check counted on the tf32x3 route);
@@ -42,13 +50,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      warehouse, under the default SQL configuration (semijoin reduction on,
      four shuffle lanes, no result cache); the row sets must agree and all
      six path kernels' launch counters (and hash_group_minmax's one-block
-     path's) must have risen.  Then the first
+     path's and hash_group's morsel path's) must have risen.  Then the first
      slice's configuration (no semijoin reduction, one lane) runs as an
      earlier path over EARLIER_QUERIES on the same warehouse, and its four
      kernels' counters must have risen;
   6. print the launches by route and path, the ``kernels`` JSON line (all
      eight kernels), the card line, and last ``{"ok": true, "device":
      {...}}``.
+
+``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
+1-3 for the six SQL kernels and their executor calls and stops with no
+result line: a quick call after a change to an SQL kernel's body.
 
 ssd_scan and flash_attention are checked and timed in phase 3 beside the
 SQL kernels (their sweeps from the JAX package's tests, the path shapes,
@@ -143,7 +155,9 @@ SOURCES = {
 FLASH_ROUTES = ("flash_attention.wgmma", "flash_attention.tf32x3",
                 "flash_attention.simt")
 MINMAX_PATHS = ("hash_group_minmax.one_block", "hash_group_minmax.multi_block")
-ROUTES = FLASH_ROUTES + MINMAX_PATHS
+# hash_group's paths (ops.py:group_path), each with its own count
+GROUP_PATHS = ("hash_group.morsel", "hash_group.grid", "hash_group.global")
+ROUTES = FLASH_ROUTES + MINMAX_PATHS + GROUP_PATHS
 ROUTE_SOURCES = {
     "flash_attention.tf32x3": "src/repro_torch/csrc/flash_attention_tf32.cu",
     "flash_attention.simt": "src/repro_torch/csrc/flash_attention.cu",
@@ -564,6 +578,29 @@ def tensor_core_report(lib, log: str) -> None:
             all(c > 0 for c in counts.values()), counts
 
 
+def atomics_report(lib) -> None:
+    """The atomic instructions in the SASS of hash_group's kernels: a float
+    atomicAdd on shared memory compiles to a compare-and-swap loop
+    (ATOMS.CAST.SPIN) on this card, the counts' increments to ATOMS.POPC.INC
+    (one a warp)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    print("hash_group's atomics in the SASS:", flush=True)
+    for fn in sass.split("Function : ")[1:]:
+        name, body = fn.split("\n", 1)
+        if "group_grid" in name or "group_morsel" in name:
+            ops = {}
+            for ln in body.splitlines():
+                for word in ln.split():
+                    if word.startswith(("ATOMS", "ATOM.", "RED.")):
+                        ops[word.rstrip(";")] = ops.get(word.rstrip(";"),
+                                                        0) + 1
+            print(f"  {name.strip()}: {ops}", flush=True)
+
+
 def bound_ms(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / peak * 1e3
@@ -573,7 +610,7 @@ def bound_ms(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
-def check_kernels(dev, rng) -> dict:
+def check_kernels(dev, rng, lm: bool = True) -> dict:
     from repro_torch.kernels.filter_eval.ops import filter_eval_cuda
     from repro_torch.kernels.filter_eval.ref import filter_eval_ref
     from repro_torch.kernels.hash_group.ops import (hash_group_cuda,
@@ -596,7 +633,7 @@ def check_kernels(dev, rng) -> dict:
         bms, by = bound_ms(nbytes, ops, peak)
         row = {"shape": shape, "ms": ms, "plain_ms": pms, "library_ms": lms,
                "bound_ms": bms, "bound_by": by}
-        if name in PROFILED_KERNELS:
+        if name in PATH_KERNELS:
             row["graph_ms"] = graph_ms(kern)
         print(f"  {name:18s} {shape:22s} kernel {ms:.4f} ms  plain "
               f"{pms:.4f} ms  library {'-' if lms is None else f'{lms:.4f}'}"
@@ -630,6 +667,24 @@ def check_kernels(dev, rng) -> dict:
                    lambda: filter_eval_ref(cols, ops, lits), None,
                    n * (4 * k + 1), n * k, main)
 
+    # filter_eval on views at offsets 0-3, alike and mixed (the kernel's
+    # head, four-row body and tail, or one row a thread), n not a multiple
+    # of 4, K 1-8, all six ops, NaN and -0.0 among the values: bit-exact
+    n = 100_003
+    for k in range(1, 9):
+        bases = [_with_specials(rng.integers(-3, 4, n + 4).astype(np.float32),
+                                rng) for _ in range(k)]
+        ops = tuple((k + i) % 6 for i in range(k))
+        lits = tuple([0.0, -0.0, 1.0, 2.0, -1.0, 0.0, 3.0, -2.0][:k])
+        for offsets in [(o,) * k for o in range(4)] + [
+                tuple(i % 4 for i in range(k))]:
+            cols = [t(b)[o:o + n] for b, o in zip(bases, offsets)]
+            got = filter_eval_cuda(cols, ops, lits)
+            exp = filter_eval_ref(cols, ops, lits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, exp), \
+                f"filter_eval K={k} offsets {offsets}: rows differ"
+
     # key_lookup: exact; SSB's dictionaries (supplier, part, customer, date)
     for g, n, main in ((200, 1024, False), (400, 1024, False),
                        (1000, 1024, False), (2556, 1024, True),
@@ -656,10 +711,12 @@ def check_kernels(dev, rng) -> dict:
                    4 * g + 8 * n, n * steps, main)
 
     # hash_group / hash_group_minmax: counts, integer sums, min/max exact;
-    # float sums at atol 1e-3 (atomics add in a run-dependent order)
+    # float sums at atol 1e-3 (the paths without a fixed order add with
+    # atomics; check_group_paths holds the morsel path to its order's bits)
     for g, n, main in ((1, 1024, False), (7, 1024, True), (640, 1024, False),
                        (3000, 1024, False), (6144, 1024, False),
-                       (8000, 1024, False), (3000, 4_000_000, False)):
+                       (8000, 1024, False), (3000, 4_000_000, False),
+                       (8000, 4_000_000, False)):
         codes = t(rng.integers(-1, g, n).astype(np.int32))
         fvals = t(rng.normal(size=n).astype(np.float32))
         ivals = t(rng.integers(1, 50, n).astype(np.float32))
@@ -687,25 +744,124 @@ def check_kernels(dev, rng) -> dict:
             lo = torch.full((g,), math.inf, device=dev)
             hi = torch.full((g,), -math.inf, device=dev)
             kcodes, kvals = safe[keep], fvals[keep]
+            # G 8,000 at 4M rows: the grid path's shared-memory copy, which
+            # the 48 KB limit kept from it before
+            big = g == 8000 and n > 1024
             record("hash_group", f"G={g} n={n}", reps,
                    lambda: hash_group_cuda(codes, fvals, g),
                    lambda: hash_group_ref(codes, fvals, g),
                    lambda: (torch.bincount(safe, weights=wsum, minlength=g),
                             torch.bincount(safe, weights=wcnt, minlength=g)),
-                   8 * n + 8 * g, 2 * n, main)
+                   8 * n + 8 * g, 2 * n, main,
+                   key="hash_group@G8000 large" if big else None)
             record("hash_group_minmax", f"G={g} n={n}", reps,
                    lambda: hash_group_minmax_cuda(codes, fvals, g),
                    lambda: hash_group_minmax_ref(codes, fvals, g),
                    lambda: (lo.scatter_reduce(0, kcodes, kvals, "amin"),
                             hi.scatter_reduce(0, kcodes, kvals, "amax")),
-                   8 * n + 8 * g, 2 * n, main)
+                   8 * n + 8 * g, 2 * n, main,
+                   key="hash_group_minmax@G8000 large" if big else None)
 
+    check_group_paths(t, rng)
     check_minmax_paths(t, rng)
     check_hash_partition(t, rng, err, record)
     check_bloom_probe(t, rng, err, record)
-    check_ssd_scan(t, rng, err, record)
-    check_flash_attention(dev, rng, err, record)
+    if lm:
+        check_ssd_scan(t, rng, err, record)
+        check_flash_attention(dev, rng, err, record)
     return {"err": err, "timed": timed}
+
+
+def check_group_paths(t, rng) -> None:
+    """hash_group's morsel and grid paths: at the SQL path's shape (G 7, n
+    1,024) the wrapper's sums equal the CPU emulation of the morsel path's
+    order (kernels/hash_group/order.py) bit for bit, in each of 100 calls,
+    and each call moves the morsel path's count alone; both paths equal the
+    plain version (integer sums and counts exactly) and are timed against
+    each other, from a loop of launches and from a CUDA graph, at G 7, 640
+    and 1,800 (the morsel path's most) from 1,024 to 65,536 rows; either
+    side of each limit the wrapper's call is exact and counted on its path;
+    the grid path at 4M rows; the wrapper's copy of the kernel's limits
+    equals the built kernel's."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.hash_group.ops import (SMEM_GROUPS,
+                                                    WARP_COPY_GROUPS,
+                                                    _prepare, group_path,
+                                                    hash_group_cuda,
+                                                    kernel_limits,
+                                                    launch_group, limits,
+                                                    morsel_rows)
+    from repro_torch.kernels.hash_group.order import morsel_order
+    from repro_torch.kernels.hash_group.ref import hash_group_ref
+
+    assert limits() == kernel_limits(), (limits(), kernel_limits())
+    print(f"  hash_group         limits as built: {kernel_limits()}",
+          flush=True)
+    codes = rng.integers(-1, 10, 1024).astype(np.int32)
+    vals = rng.normal(size=1024).astype(np.float32)
+    want = morsel_order(torch.from_numpy(codes), torch.from_numpy(vals), 7)
+    tc, tv = t(codes), t(vals)
+    before = registry.launch_counts()
+    for _ in range(100):
+        s, c = hash_group_cuda(tc, tv, 7)
+        assert torch.equal(s.cpu().view(torch.int32),
+                           want[0].view(torch.int32)), \
+            "hash_group at G=7 n=1024: sums differ from the morsel order"
+        assert torch.equal(c.cpu(), want[1])
+    after = registry.launch_counts()
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in GROUP_PATHS}
+    assert moved == {"hash_group.morsel": 100, "hash_group.grid": 0,
+                     "hash_group.global": 0}, moved
+    print("  hash_group         G=7 n=1024: 100 calls, each the morsel "
+          "order's bits", flush=True)
+    # either side of each limit: integer sums and counts exact, one count of
+    # the path's own
+    for n, g in ((1024, 32), (1024, 33), (1024, 6144), (1024, 6145),
+                 (1024, WARP_COPY_GROUPS), (1024, WARP_COPY_GROUPS + 1),
+                 (1024, SMEM_GROUPS), (1024, SMEM_GROUPS + 1),
+                 (morsel_rows(7), 7), (morsel_rows(7) + 1, 7),
+                 (morsel_rows(33), 33), (morsel_rows(33) + 1, 33),
+                 (100_003, SMEM_GROUPS), (100_003, SMEM_GROUPS + 1)):
+        codes = t(rng.integers(-1, g + 3, n).astype(np.int32))
+        ints = t(rng.integers(-3, 50, n).astype(np.float32))
+        path = f"hash_group.{group_path(n, g)}"
+        before = registry.launch_counts().get(path, 0)
+        got = hash_group_cuda(codes, ints, g)
+        assert registry.launch_counts()[path] == before + 1, (n, g, path)
+        exp = hash_group_ref(codes, ints, g)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, exp)), (n, g)
+    for g, n in [(g, n) for n in (1024, 2048, 4096, 8192, 16384, 65536)
+                 for g in (7, 640, WARP_COPY_GROUPS)]:
+        ints = t(rng.integers(-3, 50, n).astype(np.float32))
+        codes, vals = _prepare(t(rng.integers(-1, g, n).astype(np.int32)),
+                               ints, g)
+        exp = torch.stack(hash_group_ref(codes, vals, g))
+        ms = {}
+        for path in ("morsel", "grid"):
+            got = launch_group(codes, vals, g, path)
+            torch.cuda.synchronize()
+            assert torch.equal(got, exp), f"hash_group {path} G={g} n={n}"
+            run = lambda path=path: launch_group(codes, vals, g, path)  # noqa: E731
+            ms[path] = (time_ms(run, 200), graph_ms(run))
+        print(f"  hash_group         paths at G={g} n={n}: " + ", ".join(
+            f"{p} {a:.4f} ms (graph {b:.4f})" for p, (a, b) in ms.items())
+            + f"; the wrapper takes {group_path(n, g)} (up to "
+            f"{morsel_rows(g)} rows the morsel path)", flush=True)
+    # the grid path at 4M rows: 7 groups in registers (no atomics), 3,000
+    # and 8,000 in a shared copy per block
+    for g in (7, 3000, 8000):
+        n = 4_000_000
+        codes = t(rng.integers(-1, g, n).astype(np.int32))
+        ints = t(rng.integers(-3, 4, n).astype(np.float32))
+        exp = torch.stack(hash_group_ref(codes, ints, g))
+        got = launch_group(codes, ints, g, "grid")
+        torch.cuda.synchronize()
+        assert torch.equal(got, exp), f"hash_group grid G={g} n={n}"
+        ms = graph_ms(lambda: launch_group(codes, ints, g, "grid"))
+        print(f"  hash_group         grid path at G={g} n={n}, from a CUDA "
+              f"graph: {ms:.4f} ms (bound "
+              f"{bound_ms(8 * n + 8 * g, 2 * n)[0]:.4f} ms)", flush=True)
 
 
 def check_minmax_paths(t, rng) -> None:
@@ -1211,8 +1367,9 @@ def main_path(rows: int, work_dir: str, isolated: dict) -> dict:
             db, wh, {**CONFIG, "exchange.spill_dir": spill}, queries,
             PATH_KERNELS, f"main path: default SQL configuration {CONFIG}, "
             f"{len(queries)} queries, lineorder {rows} rows")
-        # the executor's 1,024-row morsels take the one-launch path
+        # the executor's 1,024-row morsels take the one-launch paths
         assert launches.get("hash_group_minmax.one_block", 0) > 0, launches
+        assert launches.get("hash_group.morsel", 0) > 0, launches
         profile_path(db, wh, {**CONFIG, "exchange.spill_dir": spill},
                      PROFILE_QUERY, queries[PROFILE_QUERY], isolated)
         run_path(
@@ -1433,23 +1590,19 @@ def flash_phase(dev, rng) -> dict:
     return launches
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=6_000_000,
-                    help="lineorder rows (default 6,000,000, SSB SF1)")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-
+def prepare(seed: int):
+    """Phases 1-2: the card's line, the build and its reports.  Returns
+    (card line, device, rng); None without CUDA or the port's package."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+        return None
     # full float32 in float32 matrix products and convolutions (the Mamba2
     # conv), as the plain versions on the CPU compute them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
-        return 2
+        return None
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build, registry
 
@@ -1468,13 +1621,17 @@ def main() -> int:
         if "Compiling entry function" in line or "Used" in line:
             print("  " + line.split("ptxas info    : ", 1)[-1], flush=True)
     tensor_core_report(lib, _build.build_log())
+    atomics_report(lib)
     _build.library()
+    return card, torch.device("cuda"), np.random.default_rng(seed)
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
+
+def sql_phases(dev, rng, lm: bool = True) -> tuple:
+    """Phase 3 (the LM kernels' checks too with ``lm``) and the executor
+    calls at the path's shapes; returns (checked, round trips)."""
     print("kernel checks against the plain versions on the card:",
           flush=True)
-    checked = check_kernels(dev, rng)
+    checked = check_kernels(dev, rng, lm=lm)
     print("executor calls (numpy in, numpy out) at the path's shapes:",
           flush=True)
     round_trip = host_round_trips(rng)
@@ -1483,6 +1640,34 @@ def main() -> int:
     print("host_call_ms, empty kernel (the floor): " + json.dumps(
         {n: round_trip[n]["empty"] for n in ("1", str(THREADS))}),
         flush=True)
+    return checked, round_trip
+
+
+def sql_kernels(seed: int = 0) -> int:
+    """Phases 1-3 for the six SQL kernels and their executor calls, with no
+    result line: a quick run after a change to an SQL kernel's body."""
+    ready = prepare(seed)
+    if ready is None:
+        return 2
+    card, dev, rng = ready
+    checked, _ = sql_phases(dev, rng, lm=False)
+    print("sql kernels: " + json.dumps(checked["timed"]), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=6_000_000,
+                    help="lineorder rows (default 6,000,000, SSB SF1)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    ready = prepare(args.seed)
+    if ready is None:
+        return 2
+    card, dev, rng = ready
+    checked, round_trip = sql_phases(dev, rng)
 
     lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
                    **flash_phase(dev, rng)}
@@ -1492,6 +1677,10 @@ def main() -> int:
 
     print("launches by route and path: " + json.dumps(
         {r: launches.get(r, 0) for r in ROUTES}), flush=True)
+    # hash_group's calls by path and G to the next power of two
+    print("hash_group launches by path and G: " + json.dumps(
+        {k: v for k, v in sorted(launches.items())
+         if k.startswith("hash_group.") and ".G<=" in k}), flush=True)
     print("routes: " + json.dumps({
         r: {**checked["timed"][r], "source": src}
         for r, src in ROUTE_SOURCES.items()}), flush=True)
@@ -1504,7 +1693,8 @@ def main() -> int:
             "max_abs_err": checked["err"][k], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "host_call_ms": round_trip["1"].get(k),
+            "shape": row["shape"], "graph_ms": row.get("graph_ms"),
+            "host_call_ms": round_trip["1"].get(k),
             "large": checked["timed"].get(k + "@large"),
         })
         if k == "ssd_scan":

@@ -18,6 +18,19 @@ namespace repro {
 constexpr int kThreads = 256;
 constexpr int kSms = 132;  // H100 SXM
 
+// The SMs of the current device, asked once (grids sized to one wave).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n < 1)
+      n = kSms;
+    return n;
+  }();
+  return sms;
+}
+
 // Blocks for a grid-stride loop over n items: enough to cover n with
 // `per_thread` items a thread of `threads`, capped at `cap` blocks.
 inline int grid_for(int64_t n, int per_thread, int cap,

@@ -35,12 +35,16 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
-    # cols (host array of k device pointers), ops, lits, k, n, out, stream
-    "filter_eval_launch": [_P, _P, _P, _I32, _I64, _P, _P],
+    # cols (host array of k device pointers), ops, lits, k, n, out, head
+    # (rows before the four-row body; -1: every row one by one), stream
+    "filter_eval_launch": [_P, _P, _P, _I32, _I64, _P, _I64, _P],
     # sorted, g, probe, n, out, stream
     "key_lookup_launch": [_P, _I64, _P, _I64, _P, _P],
-    # codes, vals, n, g, sums, counts, stream
-    "hash_group_launch": [_P, _P, _I64, _I64, _P, _P, _P],
+    # codes, vals, n, g, sums, counts, path (0 morsel, 1 grid, 2 global),
+    # scratch (the grid path's partials), its blocks, stream
+    "hash_group_launch": [_P, _P, _I64, _I64, _P, _P, _I32, _P, _I64, _P],
+    # out: the kernel's limits (int64[9], kernels/hash_group/ops.py: limits)
+    "hash_group_limits": [_P],
     # codes, vals, n, g, mins, maxs, one_block, stream
     "hash_group_minmax_launch": [_P, _P, _I64, _I64, _P, _P, _I32, _P],
     # cols (host array of k device pointers), k, n, partitions, out, stream
@@ -74,6 +78,8 @@ _SIGNATURES = {
                                     ctypes.c_float, _I32, _P],
     # stream (an empty kernel: the floor of one executor call)
     "repro_empty_launch": [_P],
+    # a captured cudaGraph_t, out: its kernel nodes (int64)
+    "repro_graph_kernel_nodes": [_P, _P],
 }
 # plan, host_in, dev_in, in_bytes, dev_out, host_out, out_bytes: the
 # leading arguments of each *_trip entry point, which copies a morsel in,

@@ -41,10 +41,11 @@ def filter_eval_cuda(columns, ops: tuple, lits: tuple):
     if not _build.takes_kernel(*columns) or n == 0:
         return filter_eval_ref(columns, ops, lits)
     cols = [c.to(torch.float32).contiguous() for c in columns]
-    out = torch.empty(n, dtype=torch.bool, device=cols[0].device)
+    ptrs = [c.data_ptr() for c in cols]
+    out = mask_buffer(n, column_head(ptrs), cols[0].device)
     err = _build.library().filter_eval_launch(
-        *_launch_args([c.data_ptr() for c in cols], ops, lits), n,
-        out.data_ptr(), _build.stream(out))
+        *_launch_args(ptrs, ops, lits), n, out.data_ptr(),
+        vector_head(ptrs, out.data_ptr()), _build.stream(out))
     _build.check(err, "filter_eval")
     count_launch("filter_eval")
     return out
@@ -64,6 +65,35 @@ def _launch_args(col_ptrs, ops, lits) -> tuple:
             (ctypes.c_float * k)(*[float(lit) for lit in lits]), k)
 
 
+def mask_buffer(n: int, head: int, device) -> torch.Tensor:
+    """An (n,) bool tensor whose byte at row ``head`` lies on a 4-byte
+    boundary (torch's allocations start on one), for the kernel's 4-byte
+    stores from there on."""
+    pad = -head % 4 if head > 0 else 0
+    return torch.empty(n + pad, dtype=torch.bool, device=device)[pad:]
+
+
+def column_head(col_ptrs) -> int:
+    """Rows before the columns' first 16-byte boundary (0-3) when every
+    column is at the same phase; -1 when not."""
+    phases = {p % 16 for p in col_ptrs}
+    if len(phases) != 1 or next(iter(phases)) % 4:
+        return -1
+    return (16 - phases.pop()) % 16 // 4
+
+
+def vector_head(col_ptrs, out_ptr: int) -> int:
+    """The kernel's ``head``: the rows it takes one by one before its body
+    of four rows a thread (one 16-byte load per column, one 4-byte store),
+    which starts where every column lies on a 16-byte boundary and the
+    mask on a 4-byte one; -1 when there is no such row, and the kernel
+    takes every row one by one.  The rows after the body's last whole four
+    (and all of them, when fewer than four follow the head) are taken one
+    by one too."""
+    head = column_head(col_ptrs)
+    return head if head >= 0 and (out_ptr + head) % 4 == 0 else -1
+
+
 def filter_eval_trip(device, columns, ops: tuple, lits: tuple):
     """The executor's call on the card in one trip (registry.trip): numpy
     columns in (cast to float32 here, as the wrapper casts them on the
@@ -73,7 +103,8 @@ def filter_eval_trip(device, columns, ops: tuple, lits: tuple):
     if n == 0:
         return np.zeros(0, dtype=bool)
     (out,) = trip("filter_eval", device, cols, [(np.bool_, (n,))],
-                  lambda i, o: (*_launch_args(i, ops, lits), n, o[0]))
+                  lambda i, o: (*_launch_args(i, ops, lits), n, o[0],
+                                vector_head(i, o[0])))
     count_launch("filter_eval")
     return out
 

@@ -207,21 +207,22 @@ def register_trip(fn: Callable, call: Callable) -> None:
 class _Lane(threading.local):
     """One thread's stream on the card and its staging buffers: page-locked
     host buffers for a call's inputs and results, and one device buffer for
-    both.  Each grows to the thread's largest call and is reused by its
-    next call, which starts after the previous one synchronised."""
+    both and a kernel's scratch after them.  Each grows to the thread's
+    largest call and is reused by its next call, which starts after the
+    previous one synchronised."""
 
     def __init__(self):
         self.device = None
 
-    def ready(self, device: torch.device, in_bytes: int,
-              out_bytes: int) -> None:
+    def ready(self, device: torch.device, in_bytes: int, out_bytes: int,
+              scratch_bytes: int) -> None:
         if device != self.device:
             self.device = device
             self.stream = torch.cuda.Stream(device=device)
             self.handle = self.stream.cuda_stream
             self.sizes = dict.fromkeys(("host_in", "host_out", "dev"), 0)
         need = {"host_in": in_bytes, "host_out": out_bytes,
-                "dev": in_bytes + out_bytes}
+                "dev": in_bytes + out_bytes + scratch_bytes}
         for which, nbytes in need.items():
             if nbytes > self.sizes[which]:
                 self._grow(which, max(nbytes, _MIN_STAGING,
@@ -258,22 +259,24 @@ def _run(entry: str, *args) -> None:
 
 
 def trip(kernel: str, device: torch.device, inputs, outs,
-         launch_args: Callable) -> list:
+         launch_args: Callable, scratch_bytes: int = 0) -> list:
     """One executor call of ``kernel`` on the card, by its C entry point
     ``<kernel>_trip`` (csrc/common.cuh: trip): each numpy array of
     ``inputs`` goes up through the thread's staging buffers in one copy,
     each tensor (build-side state from :func:`upload`) is read where it
     lies; ``outs`` lists each result's (dtype, shape);
     ``launch_args(input_pointers, output_pointers)`` gives the arguments of
-    ``<kernel>_launch`` before its stream.  Returns the results as new
-    numpy arrays."""
+    ``<kernel>_launch`` before its stream.  ``scratch_bytes`` more of the
+    thread's device staging buffer, after the results and never copied,
+    are the kernel's scratch: its pointer follows the results' in
+    ``output_pointers``.  Returns the results as new numpy arrays."""
     arrays = [np.ascontiguousarray(x) for x in inputs
               if isinstance(x, np.ndarray)]
     results = [np.empty(shape, dtype) for dtype, shape in outs]
     starts, in_bytes = _offsets(a.nbytes for a in arrays)
     out_starts, out_bytes = _offsets(r.nbytes for r in results)
     lane = _LANE
-    lane.ready(device, in_bytes, out_bytes)
+    lane.ready(device, in_bytes, out_bytes, scratch_bytes)
     plan = [len(arrays)]
     for a, at in zip(arrays, starts):
         plan += (a.ctypes.data, at, a.nbytes)
@@ -292,10 +295,12 @@ def trip(kernel: str, device: torch.device, inputs, outs,
             raise ValueError(f"{kernel}: a tensor argument must lie on the "
                              f"card, got one on {x.device}")
     out_base = base + in_bytes
+    out_ptrs = [out_base + o for o in out_starts]
+    if scratch_bytes:
+        out_ptrs.append(out_base + out_bytes)
     _run(f"{kernel}_trip", (ctypes.c_int64 * len(plan))(*plan),
          lane.host_in_ptr, base, in_bytes, out_base, lane.host_out_ptr,
-         out_bytes, *launch_args(ptrs, [out_base + o for o in out_starts]),
-         lane.handle)
+         out_bytes, *launch_args(ptrs, out_ptrs), lane.handle)
     return results
 
 

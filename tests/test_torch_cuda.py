@@ -8,8 +8,10 @@ Every test skips without a GPU of compute capability >= 9.0.  Tolerances
 of the SQL kernels:
 filter_eval, key_lookup, hash_partition, bloom_probe, counts, integer-valued
 sums and MIN/MAX are exact;
-sums of random floats agree at atol 1e-3, because float atomics add in an
-order that changes from run to run.
+sums of random floats agree at atol 1e-3, because the kernels add in
+another order, on some paths with atomics in an order that changes from
+run to run; hash_group's morsel path up to 1,800 groups adds in a fixed
+order, and equals its emulation (kernels/hash_group/order.py) bit for bit.
 """
 import numpy as np
 import pytest
@@ -758,3 +760,210 @@ def test_cuda_ssd_scan_odd_widths(cuda):
         got, _ = ssd_scan_cuda(*[a.to(cuda) for a in arrs], chunk=Q)
         exp = ssd_scan_ref(*arrs, chunk=Q)
         np.testing.assert_allclose(_np(got), _np(exp), atol=5e-5, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# hash_group's three paths (one launch each) and filter_eval's row split
+# ---------------------------------------------------------------------------
+def _kernels_launched(fn) -> int:
+    """The kernels ``fn`` launches: the kernel nodes of a CUDA graph
+    captured around it (torch.profiler lost some of these short kernels'
+    records in runs on the card).  ``fn`` runs once before, outside the
+    capture."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_int64()
+    _build.check(_build.library().repro_graph_kernel_nodes(
+        graph.raw_cuda_graph(), ctypes.byref(count)), "graph nodes")
+    return count.value
+
+
+def _group_inputs(n, g, seed):
+    """Codes from -1 to g + 2; normal values; integers of |v| <= 3, so up
+    to 4M rows every partial sum is an integer below 2^24 and exact in
+    float32 in any order."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, g + 3, n).astype(np.int32)
+    vals = rng.normal(size=n).astype(np.float32)
+    ints = rng.integers(-3, 4, n).astype(np.float32)
+    return codes, vals, ints
+
+
+def _float64_sums(codes, vals, g):
+    """The grouped sums in float64 (a float32 sum in sequence drifts by
+    more than 1e-3 over hundreds of thousands of rows a group)."""
+    keep = (codes >= 0) & (codes < g)
+    return np.bincount(codes[keep], weights=vals[keep].astype(np.float64),
+                       minlength=g)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1024, "morsel_rows"])
+@pytest.mark.parametrize("g", [1, 7, 8, 9, 31, 32, 33, 900, 1800])
+def test_cuda_hash_group_morsel_equals_its_order(cuda, n, g):
+    """The morsel path's sums equal the CPU emulation of its order bit for
+    bit (registers up to 32 groups, a copy per warp up to 1,800)."""
+    from repro_torch.kernels.hash_group.ops import group_path, morsel_rows
+    from repro_torch.kernels.hash_group.order import morsel_order
+
+    n = morsel_rows(g) if n == "morsel_rows" else n
+    assert group_path(n, g) == "morsel"
+    codes, vals, _ = _group_inputs(n, g, seed=n + g)
+    s, c = hash_group_cuda(_t(codes, cuda), _t(vals, cuda), g)
+    es, ec = morsel_order(_t(codes), _t(vals), g)
+    assert np.array_equal(_bits(s), _bits(es))
+    assert torch.equal(c.cpu(), ec)
+
+
+def test_cuda_hash_group_limits_are_the_kernels(cuda):
+    """The wrapper's copy of the kernel's limits (path codes, block,
+    group limits, shared memory, blocks a SM) equals the built kernel's."""
+    from repro_torch.kernels.hash_group.ops import kernel_limits, limits
+
+    assert limits() == kernel_limits()
+
+
+def test_cuda_hash_group_repeats_at_the_path_shape(cuda):
+    """G 7, n 1,024: the same bits in 100 calls, the emulation's, through
+    the tensor wrapper and the executor's trip alike."""
+    from repro_torch.kernels.hash_group.order import morsel_order
+
+    codes, vals, _ = _group_inputs(1024, 7, seed=7)
+    want = _bits(morsel_order(_t(codes), _t(vals), 7)[0])
+    tc, tv = _t(codes, cuda), _t(vals, cuda)
+    trip = registry.host_call(hash_group_cuda, cuda)
+    for _ in range(100):
+        assert np.array_equal(_bits(hash_group_cuda(tc, tv, 7)[0]), want)
+        assert np.array_equal(trip(codes, vals, 7)[0].view(np.int32), want)
+
+
+@pytest.mark.parametrize("n,g,path", [(1024, 7, "morsel"), (1024, 33, "morsel"),
+                                      (1024, 6145, "grid"),
+                                      ("morsel_rows+1", 7, "grid"),
+                                      (200_000, 40, "grid"),
+                                      (200_000, 3000, "grid"),
+                                      (1024, "smem_groups+1", "global"),
+                                      (200_000, "smem_groups+1", "global")])
+def test_cuda_hash_group_one_launch_per_call(cuda, n, g, path):
+    """One kernel on the card per call on every path (a captured graph's
+    kernel nodes), and one count of the path's own."""
+    from repro_torch.kernels.hash_group.ops import (SMEM_GROUPS, group_path,
+                                                    morsel_rows)
+
+    g = SMEM_GROUPS + 1 if g == "smem_groups+1" else g
+    n = morsel_rows(g) + 1 if n == "morsel_rows+1" else n
+    assert group_path(n, g) == path
+    codes, vals, ints = _group_inputs(n, g, seed=n % 1000 + g)
+    tc, tv = _t(codes, cuda), _t(vals, cuda)
+    assert _kernels_launched(lambda: hash_group_cuda(tc, tv, g)) == 1
+    before = registry.launch_counts()
+    hash_group_cuda(tc, tv, g)
+    after = registry.launch_counts()
+    for key in ("hash_group", f"hash_group.{path}"):
+        assert after.get(key, 0) == before.get(key, 0) + 1, key
+    s, c = hash_group_cuda(tc, _t(ints, cuda), g)
+    es, ec = hash_group_ref(_t(codes), _t(ints), g)
+    assert torch.equal(s.cpu(), es) and torch.equal(c.cpu(), ec)
+
+
+def test_cuda_hash_group_grid_from_four_threads(cuda):
+    """Four threads, each on its own stream, make the executor's call on
+    the grid path at once (cooperative launches from concurrent streams,
+    each with its scratch in the thread's staging buffer): every answer is
+    the plain version's (integer sums, exact)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.hash_group.ops import group_path
+
+    call = registry.host_call(hash_group_cuda, cuda)
+    work = []
+    for t in range(4):
+        calls = []
+        for i in range(12):
+            g = (7, 40, 3000)[i % 3]
+            codes, _, ints = _group_inputs(20_000 + 97 * i, g, seed=t * 50 + i)
+            assert group_path(codes.shape[0], g) == "grid"
+            calls.append((codes, ints, g, tuple(
+                _np(x) for x in hash_group_ref(_t(codes), _t(ints), g))))
+        work.append(calls)
+
+    def run(calls):
+        return [(call(c, v, g), exp) for c, v, g, exp in calls]
+
+    with ThreadPoolExecutor(4) as pool:
+        done = list(pool.map(run, work, timeout=120))
+    for results in done:
+        for got, exp in results:
+            assert all(np.array_equal(a, b) for a, b in zip(got, exp))
+
+
+@pytest.mark.parametrize("n,g", [(1024, 32), (1024, 33), (1024, 6144),
+                                 (1024, 6145), (1024, "warp_copy"),
+                                 (1024, "warp_copy+1"), (1024, "smem"),
+                                 (1024, "smem+1"), ("morsel_rows", 7),
+                                 ("morsel_rows+1", 7), ("morsel_rows+1", 32),
+                                 ("morsel_rows+1", 33), (100_003, "smem"),
+                                 (100_003, "smem+1"), (4_000_000, 7),
+                                 (4_000_000, 3000), (4_000_000, 8000)])
+def test_cuda_hash_group_shape_boundaries(cuda, n, g):
+    """Either side of each limit: counts and integer sums exact, float sums
+    at atol 1e-3 of the float64 sums, on inputs whose arrays are and are
+    not 16-byte aligned."""
+    from repro_torch.kernels.hash_group.ops import (SMEM_GROUPS,
+                                                    WARP_COPY_GROUPS,
+                                                    morsel_rows)
+
+    limits = {"warp_copy": WARP_COPY_GROUPS,
+              "warp_copy+1": WARP_COPY_GROUPS + 1, "smem": SMEM_GROUPS,
+              "smem+1": SMEM_GROUPS + 1}
+    g = limits.get(g, g)
+    n = {"morsel_rows": morsel_rows(g),
+         "morsel_rows+1": morsel_rows(g) + 1}.get(n, n)
+    codes, vals, ints = _group_inputs(n, g, seed=g)
+    for offset in (0, 1):
+        pc, pv, pi = (_t(np.concatenate([np.zeros(offset, a.dtype), a]),
+                         cuda)[offset:] for a in (codes, vals, ints))
+        s, c = hash_group_cuda(pc, pv, g)
+        ec = hash_group_ref(_t(codes), _t(vals), g)[1]
+        np.testing.assert_allclose(_np(s), _float64_sums(codes, vals, g),
+                                   atol=1e-3, rtol=0)
+        assert torch.equal(c.cpu(), ec)
+        si, _ = hash_group_cuda(pc, pi, g)
+        assert torch.equal(si.cpu(), hash_group_ref(_t(codes), _t(ints),
+                                                    g)[0])
+
+
+FILTER_OPS_K = [(k, tuple((k + i) % 6 for i in range(k))) for k in range(1, 9)]
+
+
+@pytest.mark.parametrize("k,ops", FILTER_OPS_K)
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 1029, 100_003])
+def test_cuda_filter_eval_unaligned_views(cuda, k, ops, n):
+    """Columns at offsets 0-3 (all alike, and mixed), n not a multiple of 4,
+    NaN and -0.0 in the columns: bit-exact against the plain version, one
+    kernel a call."""
+    rng = np.random.default_rng(k * 100 + n)
+    bases = []
+    for _ in range(k):
+        a = rng.integers(-3, 4, n + 4).astype(np.float32)
+        for v in (-0.0, 0.0, np.nan):
+            a[rng.integers(0, n + 4, max(1, n // 8))] = v
+        bases.append(a)
+    lits = tuple([0.0, -0.0, 1.0, 2.0, -1.0, 0.0, 3.0, -2.0][:k])
+    patterns = [(o,) * k for o in range(4)] + [tuple(i % 4 for i in range(k))]
+    calls = []
+    for offsets in patterns:
+        cols = [_t(b, cuda)[o:o + n] for b, o in zip(bases, offsets)]
+        exp = filter_eval_ref([_t(b)[o:o + n] for b, o in zip(bases, offsets)],
+                              ops, lits)
+        got = filter_eval_cuda(cols, ops, lits)
+        assert got.shape == (n,) and torch.equal(got.cpu(), exp), offsets
+        calls.append(lambda cols=cols: filter_eval_cuda(cols, ops, lits))
+    assert _kernels_launched(lambda: [call() for call in calls]) == \
+        len(calls)

@@ -43,7 +43,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      against its plain version on that layer's own inputs from the
      prefill.  Then flash_attention's own
      phase: its entry point once at zamba2-1.2b's shared attention, which
-     must take the tensor-core route;
+     must take the tensor-core route.  Then the LM training path, fed by
+     the warehouse: an ACID corpus (2,048 documents of 256 tokens over
+     mamba2-130m's vocabulary) read through batches_from_warehouse under
+     ``engine: cuda`` (the SQL kernels' counters that rose printed, at
+     least one required; the batches held to ``engine: auto``'s), then
+     mamba2-130m at full width and depth trained for 6 steps of train_4k's
+     length (its batch of 256 cut to 16) with make_train_step
+     (microbatches 4, remat, the plain scan: no LM kernel launches under
+     autograd), loss, grad norm and ms a step, tokens/s and peak memory
+     printed, the loss required to fall; an async checkpoint of the
+     weights and optimiser state restored bit-equal into a fresh model;
+     one step on 1 x 512 tokens on the card against the CPU, and one step
+     in each remat mode (none, per_period, sqrt) with its peak memory;
   5. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
      13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
@@ -55,8 +67,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      earlier path over EARLIER_QUERIES on the same warehouse, and its four
      kernels' counters must have risen;
   6. print the launches by route and path, the ``kernels`` JSON line (all
-     eight kernels), the card line, and last ``{"ok": true, "device":
-     {...}}``.
+     eight kernels), the training phase's numbers (``train: {...}``), the
+     card line, and last ``{"ok": true, "device": {...}}``.
 
 ``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
 1-3 for the six SQL kernels and their executor calls and stops with no
@@ -1544,15 +1556,17 @@ def serve_lm(dev, seed: int) -> int:
     assert int(generated.min()) >= 0 and \
         int(generated.max()) < cfg.vocab_size
     assert torch.isfinite(last.float()).all()
-    ref_last = M.forward(model, prompt)[:, -1]
+    with torch.inference_mode():
+        ref_last = M.forward(model, prompt)[:, -1]
     e_dec = float((last.float() - ref_last.float()).abs().max())
     agree_dec = float((last.argmax(-1) == ref_last.argmax(-1)).float().mean())
     print(f"decode vs prefill logits at the prompt's last position: max "
           f"|diff| {e_dec:.5f} (tolerance {DECODE_TOL}), argmax agreement "
           f"{agree_dec:.4f}", flush=True)
     assert torch.allclose(last.float(), ref_last.float(), **DECODE_TOL)
-    with_kernel = M.forward(model, tokens)
-    plain = M.forward(model, tokens, use_kernel=False)
+    with torch.inference_mode():
+        with_kernel = M.forward(model, tokens)
+        plain = M.forward(model, tokens, use_kernel=False)
     assert torch.equal(with_kernel[:, -1].argmax(-1).to(torch.int32), nxt)
     e_pre, scale, median, agree_pre = logits_diff(with_kernel, plain)
     print(f"prefill logits, kernel vs plain scan: max |diff| {e_pre:.5f}, "
@@ -1588,6 +1602,336 @@ def flash_phase(dev, rng) -> dict:
     print(f"flash_attention phase (entry point, (B, H, S, d) = {FLASH_PATH}, "
           f"bf16): {launches}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the LM training path, fed by the warehouse
+# ---------------------------------------------------------------------------
+TRAIN_DOCS, TRAIN_DOC_LEN = 2048, 256  # the ACID corpus: 524,288 tokens
+TRAIN_BATCH = 16       # train_4k's global batch of 256, cut (see train_lm)
+TRAIN_MICROBATCHES = 4
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-3
+CHECK_BATCH = (1, 512)  # the card's step against the CPU's
+REMAT_BATCH = 2         # sequences of train_4k's length in each remat step
+# the card's step against the CPU's, both in plain torch from the same
+# weights, state and batch, float32 products in full float32 on both: the
+# bfloat16 products add in another order, so bfloat16 roundings of their
+# outputs flip, as between the port and the JAX package on the CPU
+# (tests/test_torch_train.py).  Moments and the parameters' updates
+# (p_new - p_old, float32 and bfloat16 parameters apart) as relative L2
+# errors over all of them.  Each limit lies between the card's reading
+# and a faulty step's, the card's on half of the tokens (H100 80GB HBM3,
+# 700 W; PERF.md section 6): loss 2.7e-5 / 3.0e-3, grad norm 2.9e-4 /
+# 2.3e-2, mu 1.3e-3 / 0.29, nu 7.7e-4 / 6.5e-2, float32 updates 7.8e-4 /
+# 9.0e-2, bfloat16 updates 4.2e-3 / 7.7e-2; train_check asserts that the
+# fault fails every relative L2 limit.
+STEP_TOL = {"loss_rtol": 1e-3, "grad_norm_rtol": 1e-2,
+            "moments_rel_l2": 2e-2, "update_rel_l2": 2e-2,
+            "bf16_update_rel_l2": 2e-2}
+# the remat modes compute the same forward (the loss) and recompute it for
+# the backward; the card's backward adds some gradients in a run-dependent
+# order (atomics)
+REMAT_TOL = {"loss_rtol": 1e-6, "grad_norm_rtol": 1e-3}
+
+
+def _copy_state(model, opt, device):
+    """A copy of (model, optimiser state) on ``device``."""
+    import copy
+
+    from repro_torch.train.optimizer import AdamWState
+
+    return (copy.deepcopy(model).to(device),
+            AdamWState(opt.step.to(device, copy=True),
+                       {k: v.to(device, copy=True) for k, v in opt.mu.items()},
+                       {k: v.to(device, copy=True) for k, v in opt.nu.items()}))
+
+
+def _rel_l2(got: dict, exp: dict) -> float:
+    num = sum(float(torch.sum((got[k].cpu() - exp[k].cpu()).double() ** 2))
+              for k in exp)
+    den = sum(float(torch.sum(exp[k].cpu().double() ** 2)) for k in exp)
+    return math.sqrt(num / den)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def train_sql(dev, cfg, seq: int, work: str) -> list:
+    """(a) the ACID corpus and its batches through batches_from_warehouse
+    under engine cuda, counted, then held to the same pipeline under
+    engine auto (numpy host paths); returns TRAIN_STEPS batches."""
+    from repro_torch.core.session import Warehouse
+    from repro_torch.kernels import registry
+    from repro_torch.train.lm_from_warehouse import (batches_from_warehouse,
+                                                     build_corpus)
+
+    wh = Warehouse(os.path.join(work, "warehouse"))
+    try:
+        t0 = time.perf_counter()
+        build_corpus(wh, cfg.vocab_size, n_docs=TRAIN_DOCS,
+                     doc_len=TRAIN_DOC_LEN)
+        build_s = time.perf_counter() - t0
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        data = batches_from_warehouse(wh, "train", TRAIN_BATCH, seq,
+                                      cfg.vocab_size, engine="cuda",
+                                      device=dev)
+        batches = [next(data) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        sql_s = time.perf_counter() - t0
+        rose = {k: v for k, v in sorted(registry.launch_counts().items())
+                if v}
+        print(f"training data: ACID corpus of {TRAIN_DOCS} documents x "
+              f"{TRAIN_DOC_LEN} tokens (vocabulary {cfg.vocab_size}) built "
+              f"in {build_s:.2f} s; SQL scan + join + sort under engine "
+              f"cuda and {TRAIN_STEPS} batches of {TRAIN_BATCH} x {seq} in "
+              f"{sql_s:.2f} s; kernel launches that rose: {rose}",
+              flush=True)
+        assert rose, "the training data's SQL launched no kernel"
+        host = batches_from_warehouse(wh, "train", TRAIN_BATCH, seq,
+                                      cfg.vocab_size, engine="auto",
+                                      device="cpu")
+        for b in batches:
+            h = next(host)
+            for k in ("inputs", "labels"):
+                assert b[k].shape == (TRAIN_BATCH, seq) and \
+                    b[k].dtype == torch.int32 and b[k].device.type == dev.type
+                assert torch.equal(b[k].cpu(), h[k]), \
+                    "engine cuda's batches differ from engine auto's"
+            assert int(b["inputs"].min()) >= 0 and \
+                int(b["inputs"].max()) < cfg.vocab_size
+        print("training batches under engine cuda equal engine auto's",
+              flush=True)
+        return batches
+    finally:
+        wh.close()
+
+
+def train_lm(dev, seed: int) -> dict:
+    """mamba2-130m at full width and depth trained on batches from SQL over
+    an ACID table: (a) the data under engine cuda; (b) TRAIN_STEPS steps of
+    make_train_step(microbatches=4, remat=True) from random bf16 weights,
+    timed, with every count set to 0 just before and read just after (no
+    kernel: training takes the plain scan); (e) an async checkpoint of the
+    weights and optimiser state after the last step, restored bit-equal
+    into a fresh model on the card; then, outside the timed window, (c) one
+    step on the card against the same step on the CPU and (d) one step in
+    each remat mode.  Returns the numbers it printed."""
+    from repro_torch.configs.base import LM_SHAPES, get_config
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.kernels import registry
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    s = cfg.ssm
+    shape = LM_SHAPES["train_4k"]
+    seq = shape.seq_len
+    print(f"training path: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, d_state {s.d_state}, chunk {s.chunk}, vocab "
+          f"{cfg.vocab_size}; bf16 weights from torch.Generator seed {seed}; "
+          f"make_train_step(microbatches={TRAIN_MICROBATCHES}, remat=True, "
+          f"lr={TRAIN_LR}), the plain scan in float32", flush=True)
+    print(f"cut: train_4k's global batch {shape.global_batch} -> "
+          f"{TRAIN_BATCH} (the phase's time), its length {seq} kept; "
+          f"{TRAIN_STEPS} steps", flush=True)
+    work = os.path.join(HERE, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        batches = train_sql(dev, cfg, seq, work)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = M.init_params(cfg, gen, device=dev)
+        opt = adamw_init(model)
+        step_fn = make_train_step(cfg, microbatches=TRAIN_MICROBATCHES,
+                                  remat=True, lr=TRAIN_LR)
+
+        # (b) the timed steps
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_ms = [], [], []
+        for i, batch in enumerate(batches, 1):
+            t0 = time.perf_counter()
+            model, opt, metrics = step_fn(model, opt, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"train step {i}: loss {losses[-1]:.6f}, grad norm "
+                  f"{norms[-1]:.6f}, {step_ms[-1]:.1f} ms", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        launches = registry.launch_counts()
+        tokens = TRAIN_BATCH * seq
+        tokens_per_s = tokens * (len(step_ms) - 1) / (sum(step_ms[1:]) / 1e3)
+        print(f"training: {tokens:,} tokens a step, {tokens_per_s:,.0f} "
+              f"tokens/s over steps 2-{TRAIN_STEPS}, peak "
+              f"{peak / 2**30:.2f} GiB, kernel launches {launches}",
+              flush=True)
+        assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+        assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+        assert launches.get("ssd_scan", 0) == 0, launches
+
+        # (e) an async checkpoint after the last step, restored bit-equal
+        ckpt = CheckpointManager(os.path.join(work, "checkpoints"), keep=2)
+        tree = {"params": dict(model.named_parameters()), "opt": opt}
+        t0 = time.perf_counter()
+        ckpt.save(TRAIN_STEPS, tree, blocking=False)
+        blocked_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.wait()
+        write_s = time.perf_counter() - t0
+        fresh = M.LM(cfg, torch.bfloat16, dev)
+        fresh_opt = adamw_init(fresh)
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(
+            {"params": dict(fresh.named_parameters()), "opt": fresh_opt})
+        with torch.no_grad():
+            for name, p in fresh.named_parameters():
+                p.copy_(restored["params"][name])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert step == TRAIN_STEPS
+        got_opt = restored["opt"]
+        pairs = [(p, dict(fresh.named_parameters())[n])
+                 for n, p in model.named_parameters()]
+        pairs += [(opt.step, got_opt.step)]
+        pairs += [(opt.mu[n], got_opt.mu[n]) for n in opt.mu]
+        pairs += [(opt.nu[n], got_opt.nu[n]) for n in opt.nu]
+        for a, b in pairs:
+            assert b.device.type == dev.type and a.dtype == b.dtype
+            assert torch.equal(_bits(a.detach()), _bits(b.detach()))
+        nbytes = sum(a.numel() * a.element_size() for a, _ in pairs)
+        print(f"checkpoint of step {step} ({nbytes / 2**30:.2f} GiB, "
+              f"{len(pairs)} tensors): the loop blocked {blocked_ms:.1f} ms "
+              f"for the async save, the write took {write_s:.2f} s more, "
+              f"the restore into a fresh model on the card {restore_s:.2f} "
+              f"s; bit-equal", flush=True)
+        del fresh, fresh_opt, restored, got_opt, pairs
+
+        check = train_check(dev, model, opt, batches[-1])
+        remat = train_remat(dev, model, opt, batches[-1])
+        return {"step_ms": step_ms, "loss": losses, "grad_norm": norms,
+                "tokens_per_s": tokens_per_s, "peak_gib": peak / 2**30,
+                "checkpoint_blocked_ms": blocked_ms,
+                "checkpoint_write_s": write_s, "cpu_check": check,
+                "remat": remat}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _step_errors(model, got, exp) -> dict:
+    """Relative L2 errors of one step's (model, state) ``got`` against
+    ``exp``, both taken from ``model``'s weights: moments, and the updates
+    (p_new - p_old) of the float32 and the bfloat16 parameters apart."""
+    (mg, og), (me, oe) = got, exp
+    old = {n: p.detach().cpu().float() for n, p in model.named_parameters()}
+    pg, pe = dict(mg.named_parameters()), dict(me.named_parameters())
+    out = {"mu": _rel_l2(og.mu, oe.mu), "nu": _rel_l2(og.nu, oe.nu)}
+    for key, dtype in (("update", torch.float32),
+                       ("bf16_update", torch.bfloat16)):
+        names = [n for n, p in pe.items() if p.dtype == dtype]
+        assert names and all(pg[n].dtype == dtype for n in names), key
+        out[key] = _rel_l2(
+            {n: pg[n].detach().cpu().float() - old[n] for n in names},
+            {n: pe[n].detach().cpu().float() - old[n] for n in names})
+    return out
+
+
+def train_check(dev, model, opt, batch) -> dict:
+    """(c) one step (no microbatches, no remat) on a CHECK_BATCH slice of
+    ``batch``, from the same weights and state, on the card and on the
+    CPU, at STEP_TOL; and a faulty step, the card's on half of those
+    tokens, held to the CPU's step the same way, which must fail every
+    relative L2 limit."""
+    from repro_torch.train.steps import make_train_step
+
+    b, n = CHECK_BATCH
+    part = {k: v[:b, :n] for k, v in batch.items()}
+    step = make_train_step(model.cfg, remat=False, lr=TRAIN_LR)
+    out = {}
+    runs = (("card", dev, n), ("cpu", torch.device("cpu"), n),
+            ("fault", dev, n // 2))
+    for name, device, tokens in runs:
+        m, o = _copy_state(model, opt, device)
+        t0 = time.perf_counter()
+        m, o, metrics = step(m, o, {k: v[:, :tokens].to(device)
+                                    for k, v in part.items()})
+        out[name] = (m, o, float(metrics["loss"]),
+                     float(metrics["grad_norm"]), time.perf_counter() - t0)
+    (mc, oc, lc, gc, tc), (mp, op, lp, gp, tp) = out["card"], out["cpu"]
+    err = _step_errors(model, (mc, oc), (mp, op))
+    fault = _step_errors(model, out["fault"][:2], (mp, op))
+    fault["loss"], fault["grad_norm"] = out["fault"][2:4]
+    print(f"one step on {b} x {n} tokens, card vs CPU (plain torch): loss "
+          f"{lc:.6f} / {lp:.6f}, grad norm {gc:.6f} / {gp:.6f}, relative L2 "
+          f"errors: moments mu {err['mu']:.2e} nu {err['nu']:.2e}, updates "
+          f"of the float32 parameters {err['update']:.2e}, of the bf16 "
+          f"parameters {err['bf16_update']:.2e}; {tc:.2f} s / {tp:.2f} s "
+          f"(tolerance {STEP_TOL})", flush=True)
+    print(f"the fault (the card's step on {b} x {n // 2} of those tokens) "
+          f"against the CPU's step: loss {fault['loss']:.6f}, grad norm "
+          f"{fault['grad_norm']:.6f}, relative L2 errors: moments mu "
+          f"{fault['mu']:.2e} nu {fault['nu']:.2e}, float32 updates "
+          f"{fault['update']:.2e}, bf16 updates {fault['bf16_update']:.2e}",
+          flush=True)
+    assert abs(lc - lp) <= STEP_TOL["loss_rtol"] * abs(lp), (lc, lp)
+    assert abs(gc - gp) <= STEP_TOL["grad_norm_rtol"] * abs(gp), (gc, gp)
+    limits = {"mu": "moments_rel_l2", "nu": "moments_rel_l2",
+              "update": "update_rel_l2", "bf16_update": "bf16_update_rel_l2"}
+    for key, limit in limits.items():
+        assert err[key] <= STEP_TOL[limit], (key, err)
+        assert fault[key] > STEP_TOL[limit], ("the fault passed", key, fault)
+    assert int(oc.step) == int(op.step) == int(opt.step) + 1
+    return {"loss": [lc, lp], "grad_norm": [gc, gp],
+            **{f"{k}_rel_l2": v for k, v in err.items()},
+            "fault": {f"{k}_rel_l2" if k in limits else k: v
+                      for k, v in fault.items()}}
+
+
+def train_remat(dev, model, opt, batch) -> dict:
+    """(d) one step in each remat mode (none, per_period, sqrt) on the same
+    REMAT_BATCH sequences from the same weights and state, no
+    microbatches: peak memory and ms each; losses at REMAT_TOL."""
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_train_step
+
+    part = {k: v[:REMAT_BATCH] for k, v in batch.items()}
+    runs = {}
+    for mode in ("none", "per_period", "sqrt"):
+        m, o = _copy_state(model, opt, dev)
+        M.set_remat_mode("sqrt" if mode == "sqrt" else "per_period")
+        try:
+            step = make_train_step(model.cfg, remat=mode != "none",
+                                   lr=TRAIN_LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, _, metrics = step(m, o, part)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            M.set_remat_mode("per_period")
+        runs[mode] = {"loss": loss, "grad_norm": gnorm, "ms": ms,
+                      "peak_gib": peak}
+        del m, o
+    shape = tuple(part["inputs"].shape)
+    print(f"remat modes, one step on {shape}: " + json.dumps(runs) +
+          f" (tolerance {REMAT_TOL}, SQRT_GROUP {M.SQRT_GROUP} of "
+          f"{model.cfg.num_periods} periods)", flush=True)
+    base = runs["none"]
+    for mode in ("per_period", "sqrt"):
+        r = runs[mode]
+        assert abs(r["loss"] - base["loss"]) <= \
+            REMAT_TOL["loss_rtol"] * abs(base["loss"]), (mode, runs)
+        assert abs(r["grad_norm"] - base["grad_norm"]) <= \
+            REMAT_TOL["grad_norm_rtol"] * abs(base["grad_norm"]), (mode, runs)
+    return runs
 
 
 def prepare(seed: int):
@@ -1671,6 +2015,7 @@ def main() -> int:
 
     lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
                    **flash_phase(dev, rng)}
+    trained = train_lm(dev, args.seed)
     work = os.path.join(HERE, "build", "chip_smoke_wh")
     launches = {**main_path(args.rows, work, round_trip["split"]),
                 **lm_launches}
@@ -1701,6 +2046,7 @@ def main() -> int:
             kernels[-1]["n64"] = [checked["timed"][r] for r in
                                   ("ssd_scan@N64", "ssd_scan@N64 large")]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print("train: " + json.dumps(trained), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

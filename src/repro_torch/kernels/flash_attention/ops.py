@@ -24,7 +24,7 @@ import math
 import torch
 
 from .. import _build
-from ..registry import count_launch, register, resolve
+from ..registry import count_launch, refuse_autograd, register, resolve
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256  # the q, k and v tiles of 64 rows fit shared memory
@@ -51,7 +51,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
     ``block_q``/``block_k`` are the JAX kernel's tiles: kept for the API
     and its check that they divide S (the CUDA kernels pick their own).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    and raise where autograd records (the kernel has no backward)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must be (B, H, S, d) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -67,6 +68,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, block_q: int = 128,
         return attention_ref(q, k, v, causal=causal)
     if q.numel() == 0:
         return torch.empty_like(q)
+    refuse_autograd("flash_attention", "kernels.flash_attention.ref."
+                    "attention_ref", q, k, v)
     if d > MAX_HEAD_DIM or q.dtype not in DTYPES:
         raise ValueError(f"flash_attention kernel takes d <= {MAX_HEAD_DIM} "
                          f"in float32 or bfloat16; got d={d}, "

@@ -89,6 +89,18 @@ def reset_launch_counts() -> None:
         _LAUNCHES.clear()
 
 
+def refuse_autograd(kernel: str, plain: str, *tensors) -> None:
+    """Raise where autograd would record a launch of ``kernel``: the CUDA
+    kernels have no backward (nor have the JAX package's), so their output
+    would carry no history and the parameters upstream would silently get
+    no gradient.  ``plain`` names the differentiable route."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and does not run "
+            f"where autograd records; take the plain route ({plain}), or "
+            f"call it under torch.no_grad() / torch.inference_mode()")
+
+
 def count_upload(kernel: str) -> None:
     with _LAUNCH_LOCK:
         _UPLOADS[kernel] = _UPLOADS.get(kernel, 0) + 1

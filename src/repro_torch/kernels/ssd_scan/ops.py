@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..registry import count_launch, register, resolve
+from ..registry import count_launch, refuse_autograd, register, resolve
 from .ref import ssd_scan_ref
 
 MAX_HEAD_DIM = 64   # P: y's tile is 64 columns wide
@@ -118,7 +118,8 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
     float32 with zero initial state, as ``ssd_reference`` gives it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    four passes, which read the inputs in their one dtype (float32 or
+    four passes (and raise where autograd records: the kernel has no
+    backward; training takes ``ssd_reference``), which read the inputs in their one dtype (float32 or
     bfloat16) and compute in float32.  A call counts once as
     ``ssd_scan`` and each launch once as ``ssd_scan.<pass>``."""
     dims = _check(x, dA, Bm, Cm, chunk)
@@ -127,6 +128,8 @@ def ssd_scan_cuda(x, dA, Bm, Cm, chunk: int = 256):
         return torch.zeros(x.shape, dtype=torch.float32, device=x.device), None
     if not _build.takes_kernel(x, dA, Bm, Cm):
         return ssd_scan_ref(x, dA, Bm, Cm, chunk), None
+    refuse_autograd("ssd_scan", "models.mamba2.ssd_reference, "
+                    "use_kernel=False", x, dA, Bm, Cm)
     _check_kernel(x, dA, Bm, Cm, p, n, q)
     x, dA, Bm, Cm = (t.contiguous() for t in (x, dA, Bm, Cm))
     bufs = buffers(x, Bm, q)

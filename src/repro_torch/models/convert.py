@@ -9,14 +9,15 @@ tail follows in order.  bfloat16 leaves arrive as numpy arrays of ml_dtypes'
 ``bfloat16`` type, which ``torch.from_numpy`` refuses; their bits are viewed
 as uint16 and back as ``torch.bfloat16``.  The dtype is recognised by its
 name, because ml_dtypes need not be installed where the port runs.
+``train.optimizer.opt_state_from_jax`` carries the JAX package's
+``AdamWState`` through the same name mapping (``by_name``).
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..configs.base import ModelConfig
 from .model import LM
@@ -40,24 +41,45 @@ def _copy(dst: torch.Tensor, leaf, where: str) -> None:
         dst.copy_(src)
 
 
-def _load(module: nn.Module, tree: Mapping, where: str) -> None:
-    names = {n for n, _ in module.named_parameters(recurse=False)} | \
-        {n for n, _ in module.named_children()}
-    if set(tree) != names:
-        raise ValueError(f"{where}: the tree has {sorted(tree)}, the model "
-                         f"{sorted(names)}")
-    for name, leaf in tree.items():
-        if isinstance(leaf, Mapping):
-            _load(getattr(module, name), leaf, f"{where}.{name}")
-        else:
-            _copy(getattr(module, name), leaf, f"{where}.{name}")
-
-
 def _period(tree, p: int):
     """Period p of a block's stacked leaves."""
     if isinstance(tree, Mapping):
         return {k: _period(v, p) for k, v in tree.items()}
     return np.asarray(tree)[p]
+
+
+def by_name(tree: Mapping, model: LM, where: str) -> Dict[str, object]:
+    """A tree shaped like the JAX package's parameters, flattened to the
+    model's parameter names (the leaf of period p at pattern position i
+    under ``layers.<p * period + i>``); raises unless the names are the
+    model's."""
+    cfg = model.cfg
+    out: Dict[str, object] = {}
+
+    def walk(t: Mapping, prefix: str) -> None:
+        for k, v in t.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = v
+
+    walk({k: tree[k] for k in ("embed", "lm_head", "final_norm")
+          if k in tree}, "")
+    period = cfg.pattern_period
+    for i, stacked in enumerate(tree["scan"]):
+        for p in range(cfg.num_periods):
+            walk(_period(stacked, p), f"layers.{p * period + i}.")
+    base = cfg.num_periods * period
+    for i, block in enumerate(tree["tail"]):
+        walk(block, f"layers.{base + i}.")
+    if "shared" in tree:
+        walk(tree["shared"], "shared.")
+    names = {n for n, _ in model.named_parameters()}
+    if set(out) != names:
+        raise ValueError(f"{where}: the tree has {sorted(set(out) - names)} "
+                         f"beyond the model's parameters and lacks "
+                         f"{sorted(names - set(out))}")
+    return out
 
 
 def from_jax_params(params: Mapping, cfg: ModelConfig, device=None) -> LM:
@@ -73,16 +95,7 @@ def from_jax_params(params: Mapping, cfg: ModelConfig, device=None) -> LM:
     if set(params) != want:
         raise ValueError(f"the tree has {sorted(params)}, the model wants "
                          f"{sorted(want)}")
-    for name in want & {"embed", "lm_head", "final_norm"}:
-        _copy(getattr(model, name), params[name], name)
-    period = cfg.pattern_period
-    for i, stacked in enumerate(params["scan"]):
-        for p in range(cfg.num_periods):
-            _load(model.layers[p * period + i], _period(stacked, p),
-                  f"scan[{i}][period {p}]")
-    base = cfg.num_periods * period
-    for i, block in enumerate(params["tail"]):
-        _load(model.layers[base + i], block, f"tail[{i}]")
-    if cfg.shared_attention:
-        _load(model.shared, params["shared"], "shared")
+    leaves = by_name(params, model, "params")
+    for name, p in model.named_parameters():
+        _copy(p, leaves[name], name)
     return model

@@ -5,7 +5,9 @@ compute plus a linear inter-chunk state recurrence, O(S) in all.  Decode is a
 constant-time state update.  With ``use_kernel`` (the default) the scan runs
 through the registry's ``ssd_scan``, the hand-written CUDA kernel
 ``csrc/ssd_scan.cu`` on the card; ``ssd_reference`` here is its plain
-version and the ``use_kernel=False`` path.
+version and the ``use_kernel=False`` path.  The plain scan is also the
+training route, as in the JAX package: the kernel has no backward, and its
+wrapper refuses to run where autograd records.
 """
 from __future__ import annotations
 
@@ -30,6 +32,12 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     diff = cum[..., :, None] - cum[..., None, :]  # cum_i - cum_j
     mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
     return diff.masked_fill(~mask, float("-inf"))
+
+
+def _mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b, in place into a unless autograd records (exp's backward keeps
+    its output, which an in-place product would overwrite)."""
+    return a * b if torch.is_grad_enabled() else a.mul_(b)
 
 
 def ssd_reference(
@@ -58,7 +66,7 @@ def ssd_reference(
     # 1. intra-chunk (diagonal blocks)
     L = torch.exp(_segsum(Ac))  # (b,h,nc,q,q)
     scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
-    L.mul_(scores[:, None])
+    L = _mul(L, scores[:, None])
     Y_diag = torch.einsum("bhcls,bcshp->bclhp", L, xc)
     del L
 
@@ -79,7 +87,7 @@ def ssd_reference(
 
     # 4. state -> output contribution
     Y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states)
-    Y_off.mul_(torch.exp(A_cumsum).permute(0, 2, 3, 1)[..., None])
+    Y_off = _mul(Y_off, torch.exp(A_cumsum).permute(0, 2, 3, 1)[..., None])
 
     y = (Y_diag + Y_off).reshape(b, s, h, p)
     return y, state

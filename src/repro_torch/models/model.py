@@ -8,11 +8,12 @@ the JAX package's names (``embed``, ``lm_head``, ``final_norm``; per block
 ``ln``/``mamba`` or ``ln1``/``ln2``/``attn``/``mlp``), so that
 ``models.convert`` can carry its parameter trees across.
 
-``forward`` (prefill), ``init_cache`` and ``decode_step`` keep the JAX
-names and run under ``torch.inference_mode()``: this module serves.  Left
-out until training is ported (ROADMAP A6): rematerialisation and the
-sqrt-scan mode of the JAX package's ``forward``.  The ``moe`` block kind
-waits for the rest of ROADMAP A5 and raises.
+``forward`` (train and prefill), ``init_cache`` and ``decode_step`` keep
+the JAX names.  ``forward`` records for autograd where grad is enabled (the
+train step takes it with ``use_kernel=False`` and ``remat``, whose modes
+are the JAX package's); ``decode_step`` and the serving steps run under
+``torch.inference_mode()``.  The ``moe`` block kind waits for the rest of
+ROADMAP A5 and raises.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import (NOSHARD, MLP, Attention, ShardCtx, attention,
@@ -133,7 +135,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ===========================================================================
-# forward (prefill)
+# forward (train / prefill)
 # ===========================================================================
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
@@ -171,16 +173,63 @@ def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
     return h @ model.lm_head
 
 
-@torch.inference_mode()
+# Rematerialisation, as in the JAX package (its scan over periods unrolled):
+#   'per_period' - each period's layers under torch.utils.checkpoint: the
+#                  backward keeps one activation per period and recomputes
+#                  the period's insides
+#   'sqrt'       - groups of SQRT_GROUP periods checkpointed, each running
+#                  its periods checkpointed (sqrt(L) checkpointing); only
+#                  where num_periods is a multiple of SQRT_GROUP above it,
+#                  else 'per_period'
+_REMAT_MODE = "per_period"
+SQRT_GROUP = 8
+
+
+def set_remat_mode(name: str) -> None:
+    global _REMAT_MODE
+    if name not in ("per_period", "sqrt"):
+        raise ValueError(f"remat mode must be 'per_period' or 'sqrt', got "
+                         f"{name!r}")
+    _REMAT_MODE = name
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(model: LM, inputs: torch.Tensor, use_kernel: bool = True,
-            ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+            ctx: ShardCtx = NOSHARD, remat: bool = False) -> torch.Tensor:
     """inputs: (B, S) int tokens, or (B, S, D) embeddings (stub) -> logits
     (B, S, V).  ``use_kernel`` sends every Mamba2 scan through the
-    registry's ``ssd_scan`` (the CUDA kernel on the card)."""
+    registry's ``ssd_scan`` (the CUDA kernel on the card, which refuses to
+    run where autograd records: training passes ``use_kernel=False``).
+    ``remat`` checkpoints the periods by the mode ``set_remat_mode`` set;
+    the tail runs without.  zamba2's shared block gets the gradient of
+    every position it is applied at, summed."""
     cfg = model.cfg
+    period, periods = cfg.pattern_period, cfg.num_periods
+
+    def layers(h, start: int, stop: int):
+        for i in range(start, stop):
+            h = _apply_block(model.kinds[i], model.layers[i], model.shared, h,
+                             cfg, ctx, use_kernel)
+        return h
+
+    def periods_of(h, first: int, count: int):
+        for p in range(first, first + count):
+            h = _checkpointed(layers, h, p * period, (p + 1) * period)
+        return h
+
     h = _embed(model, inputs)
-    for kind, bp in zip(model.kinds, model.layers):
-        h = _apply_block(kind, bp, model.shared, h, cfg, ctx, use_kernel)
+    group = SQRT_GROUP
+    if not remat:
+        h = layers(h, 0, periods * period)
+    elif _REMAT_MODE == "sqrt" and periods % group == 0 and periods > group:
+        for g in range(0, periods, group):
+            h = _checkpointed(periods_of, h, g, group)
+    else:
+        h = periods_of(h, 0, periods)
+    h = layers(h, periods * period, len(model.layers))
     return ctx.constrain(_logits(model, h), (ctx.dp_spec, None, ctx.tp))
 
 

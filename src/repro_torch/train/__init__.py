@@ -1,1 +1,2 @@
-"""Serving steps for the LM side (training waits for ROADMAP A6)."""
+"""The LM side's steps: training (AdamW, microbatches, remat), prefill
+and serving, and the warehouse-fed train loop."""

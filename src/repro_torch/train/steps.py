@@ -1,7 +1,8 @@
-"""Prefill and serve steps, and real input batches for every (arch x shape)
-cell, in PyTorch.
+"""Train, prefill and serve steps, and real input batches for every
+(arch x shape) cell, in PyTorch.
 
-Serving only: ``make_train_step`` and the optimizer wait for ROADMAP A6.
+``make_train_step`` takes AdamW (``train.optimizer``) over the gradients of
+the plain forward, with microbatches and remat as in the JAX package.
 ``input_specs`` gives each input's shape and dtype (the cache's from
 ``init_cache`` on the meta device, which allocates nothing), and
 ``materialize_batch`` builds real tensors from a ``torch.Generator``.
@@ -15,6 +16,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model as M
 from ..models.layers import NOSHARD, ShardCtx
+from .optimizer import AdamWState, adamw_update
 
 
 # ---------------------------------------------------------------------------
@@ -27,6 +29,67 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (logz - gold).mean()
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
+                    microbatches: int = 1, remat: bool = True,
+                    lr: float = 3e-4):
+    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
+    {"loss", "grad_norm"}), the parameters and moments updated in place on
+    the model's device.
+
+    The loss is ``softmax_xent`` over ``forward(..., use_kernel=False)``:
+    the plain scan, as the JAX package trains (the CUDA scan has no
+    backward).  With microbatches > 1 the batch is split, and each
+    microbatch's gradients (``torch.autograd.grad``, never ``.grad``, which
+    would add in the parameters' dtype) are added into float32 buffers and
+    divided by ``microbatches``: gradient accumulation, which keeps the
+    logits at 1/M of the batch's."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def loss_and_grads(model, params, inputs, labels):
+        with torch.enable_grad():
+            logits = M.forward(model, inputs, use_kernel=False, ctx=ctx,
+                               remat=remat)
+            loss = softmax_xent(logits, labels)
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), grads
+
+    def train_step(model, opt_state: AdamWState, batch: Dict):
+        names, params = zip(*model.named_parameters())
+        inputs, labels = batch["inputs"], batch["labels"]
+        if microbatches > 1:
+            B = inputs.shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{microbatches} microbatches")
+            mb = B // microbatches
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for p in params]
+            lsum = 0.0
+            for i in range(microbatches):
+                part = slice(i * mb, (i + 1) * mb)
+                loss, grads = loss_and_grads(model, params, inputs[part],
+                                             labels[part])
+                for acc, g in zip(gsum, grads):
+                    acc.add_(g.float())
+                lsum = lsum + loss
+                del grads
+            grads = [g / microbatches for g in gsum]
+            loss = lsum / microbatches
+        else:
+            loss, grads = loss_and_grads(model, params, inputs, labels)
+        _, opt_state, gnorm = adamw_update(
+            dict(zip(names, grads)), opt_state, dict(zip(names, params)),
+            lr=lr)
+        return model, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -464,9 +464,11 @@ def test_cuda_mamba2_prefill_and_decode(cuda):
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
                            device=cuda)
     before = registry.launch_counts().get("ssd_scan", 0)
-    with_kernel = M.forward(model, tokens)
-    assert registry.launch_counts()["ssd_scan"] == before + cfg.num_layers
-    plain = M.forward(model, tokens, use_kernel=False)
+    with torch.inference_mode():
+        with_kernel = M.forward(model, tokens)
+        assert registry.launch_counts()["ssd_scan"] == \
+            before + cfg.num_layers
+        plain = M.forward(model, tokens, use_kernel=False)
     np.testing.assert_allclose(_np(with_kernel.float()), _np(plain.float()),
                                atol=2e-2)
     cache = M.init_cache(cfg, 2, 32, device=cuda)
@@ -967,3 +969,59 @@ def test_cuda_filter_eval_unaligned_views(cuda, k, ops, n):
         calls.append(lambda cols=cols: filter_eval_cuda(cols, ops, lits))
     assert _kernels_launched(lambda: [call() for call in calls]) == \
         len(calls)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+def test_cuda_lm_kernels_refuse_autograd(cuda):
+    """The LM kernels have no backward: their wrappers raise where autograd
+    records, and run under no_grad."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 64, 2, 16, device=cuda, generator=g,
+                    requires_grad=True)
+    dA = -torch.rand(1, 64, 2, device=cuda, generator=g)
+    Bm, Cm = (torch.randn(1, 64, 8, device=cuda, generator=g)
+              for _ in range(2))
+    with pytest.raises(RuntimeError, match="ssd_reference"):
+        ssd_scan_cuda(x, dA, Bm, Cm, chunk=16)
+    with torch.no_grad():
+        assert ssd_scan_cuda(x, dA, Bm, Cm, chunk=16)[0].shape == x.shape
+    q = torch.randn(1, 2, 64, 16, device=cuda, generator=g,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="attention_ref"):
+        flash_attention_cuda(q, q.detach(), q.detach())
+
+
+def test_cuda_train_step_matches_cpu(cuda):
+    """Reduced mamba2-130m: one train step (two microbatches, remat) on the
+    card and on the CPU from the same weights; the loss to rtol 1e-3 and
+    the grad norm to rtol 1e-2 (bfloat16 products in another order), and
+    no ssd_scan launch (training takes the plain scan)."""
+    import copy
+
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    cfg = reduced_config(get_config("mamba2-130m"))
+    model = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 33),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"inputs": tokens[:, :-1], "labels": tokens[:, 1:]}
+    step = make_train_step(cfg, microbatches=2, lr=3e-3)
+    before = registry.launch_counts().get("ssd_scan", 0)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _, _, got = step(card, adamw_init(card),
+                         {k: v.to(cuda) for k, v in batch.items()})
+    _, _, exp = step(model, adamw_init(model), batch)
+    assert registry.launch_counts().get("ssd_scan", 0) == before
+    np.testing.assert_allclose(float(got["loss"]), float(exp["loss"]),
+                               rtol=1e-3)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(exp["grad_norm"]), rtol=1e-2)

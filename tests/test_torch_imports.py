@@ -93,3 +93,40 @@ def test_lm_prefill_loads_no_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_train_path_loads_no_jax_or_reference(tmp_path):
+    """The training modules (optimizer, train step, checkpoints, the
+    warehouse-fed loop, optimiser-state transfer): one train step of
+    reduced mamba2-130m on the CPU and a checkpoint round trip import
+    neither JAX nor the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from repro_torch.configs.base import get_config, reduced_config
+        from repro_torch.distributed.checkpoint import CheckpointManager
+        from repro_torch.models import model as M
+        from repro_torch.train import lm_from_warehouse
+        from repro_torch.train.optimizer import adamw_init, opt_state_from_jax
+        from repro_torch.train.steps import make_train_step
+        cfg = reduced_config(get_config("mamba2-130m"))
+        gen = torch.Generator().manual_seed(0)
+        model = M.init_params(cfg, gen, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        model, opt, m = make_train_step(cfg, microbatches=2)(
+            model, adamw_init(model), {{"inputs": tokens, "labels": tokens}})
+        ckpt = CheckpointManager({str(tmp_path)!r})
+        tree = {{"params": dict(model.named_parameters()), "opt": opt}}
+        ckpt.save(1, tree, blocking=False)
+        ckpt.wait()
+        restored, step = ckpt.restore(tree)
+        assert step == 1 and torch.isfinite(m["loss"])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

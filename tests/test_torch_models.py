@@ -84,11 +84,13 @@ def test_forward_matches_jax(arch):
     jcfg, params, cfg, model = _pair(arch)
     jin, tin = _inputs(cfg, 2, 16)
     exp = _f32(JM.forward(params, jcfg, jin, remat=False))
-    got = M.forward(model, tin)
+    with torch.inference_mode():
+        got = M.forward(model, tin)
     assert got.dtype == torch.bfloat16 and got.shape == exp.shape
     np.testing.assert_allclose(_f32(got), exp, **_tol(cfg))
     if cfg.ssm is not None:
-        plain = M.forward(model, tin, use_kernel=False)
+        with torch.inference_mode():
+            plain = M.forward(model, tin, use_kernel=False)
         np.testing.assert_allclose(_f32(plain), _f32(got), **SSM_TOL)
 
 
@@ -119,7 +121,8 @@ def test_prefill_step_matches_jax(arch):
     if cfg.family == "ssm":
         assert np.array_equal(got.numpy(), exp)
     else:  # near-ties among random logits may flip: compare the logits
-        logits = _f32(M.forward(model, tin)[:, -1])
+        with torch.inference_mode():
+            logits = _f32(M.forward(model, tin)[:, -1])
         picked = logits[np.arange(2), exp]
         np.testing.assert_allclose(logits.max(-1), picked, **ATTN_TOL)
 
@@ -164,7 +167,8 @@ def test_decode_matches_forward(arch):
     model = M.init_params(cfg, gen, device="cpu")
     B, S = 2, 8
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
-    full = M.forward(model, tokens)
+    with torch.inference_mode():
+        full = M.forward(model, tokens)
     cache = M.init_cache(cfg, B, S, device="cpu")
     for t in range(S):
         logits, cache = M.decode_step(model, cache, tokens[:, t], t)

@@ -41,7 +41,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      decode logits against a prefill of the same prompt, the kernel
      prefill's logits against the plain scan's, and every layer's scan
      against its plain version on that layer's own inputs from the
-     prefill.  Then flash_attention's own
+     prefill.  Then the MoE serving path: olmoe-1b-7b at full width and
+     depth (6,919,100,416 parameters), random bf16 weights from --seed,
+     one prefill_32k step on 2 x 32,768 tokens and 128 sequences decoded
+     for 288 steps as above, with tokens/s, ms a step, peak memory, each
+     step's capacity C and each prefill layer's dropped share (through
+     models.moe.route); it launches none of the eight kernels (the expert
+     products are torch.bmm).  Outside that window: moe_ffn against a
+     plain per-expert loop on layers 0 and 15's prefill inputs, the first
+     two layers on the card against the CPU, and decode against prefill
+     with nothing dropped (``moe: {...}`` before the card line).  Then
+     flash_attention's own
      phase: its entry point once at zamba2-1.2b's shared attention, which
      must take the tensor-core route.  Then the LM training path, fed by
      the warehouse: an ACID corpus (2,048 documents of 256 tokens over
@@ -68,7 +78,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernels' counters must have risen;
   6. print the launches by route and path, the ``kernels`` JSON line (all
      eight kernels), the training phase's numbers (``train: {...}``), the
-     card line, and last ``{"ok": true, "device": {...}}``.
+     MoE phase's (``moe: {...}``), the card line, and last ``{"ok": true,
+     "device": {...}}``.
 
 ``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
 1-3 for the six SQL kernels and their executor calls and stops with no
@@ -1579,6 +1590,459 @@ def serve_lm(dev, seed: int) -> int:
     return launches["ssd_scan"]
 
 
+# ---------------------------------------------------------------------------
+# phase 4a: the MoE serving path (olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+MOE_ARCH = "olmoe-1b-7b"
+# the JAX package's parameter tree (param_count()'s analytic 6,919,096,320
+# leaves out the 16 layers' q/k-norm scales, 2 x 128 each)
+MOE_PARAMS = 6_919_100_416
+MOE_LOOP_LAYERS = (0, 15)   # layers whose prefill inputs the loop check takes
+MOE_CPU_LAYERS = 2          # layers held card against CPU on 1 x PROMPT tokens
+MOE_NODROP_BATCH = 8        # sequences of PROMPT tokens, decode vs prefill
+# top-8 choices may differ between the card and the CPU only where the
+# CPU's 8th and 9th router logits lie closer than this, relative to the
+# token's largest |logit| (topk_gap)
+MOE_TIE_REL = 1e-4
+# moe_ffn adds the k gated slots in bfloat16 (as the JAX package does); the
+# per-expert loop and the CPU add them otherwise: a few bfloat16 roundings
+# of the largest output (k = 8 at d_model 512 on the CPU: relative L2
+# 0.0044, max 0.0099 of the largest |y|); a wrong expert or gate reads 1
+MOE_ROUNDING_TOL = {"rel_l2": 1e-2, "max_of_largest": 2 ** -5}
+# decode against prefill, as a multiple of a second prefill's spread (the
+# online attention, top-k held): on the H100 at --seed 0 decode with the
+# top-k held read the same 0.328 largest |diff| and the same 4.6-5.7%
+# relative L2 of a position's logits as that prefill
+MOE_DECODE_SLACK = 1.5
+
+
+class RouteLog:
+    """Patches ``models.moe.route`` to record each call's capacity and
+    dropped count (a device scalar: no sync) and, at the calls numbered in
+    ``keep_inputs``, its input."""
+
+    def __init__(self, keep_inputs=()):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe.route
+        self.keep_inputs = set(keep_inputs)
+        self.dropped, self.C, self.inputs = [], [], {}
+
+    def route(self, p, x, cfg):
+        r = self.real(p, x, cfg)
+        if len(self.C) in self.keep_inputs:
+            self.inputs[len(self.C)] = x
+        self.dropped.append((~r.keep).sum())
+        self.C.append(r.C)
+        return r
+
+    def __enter__(self):
+        self.moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def dropped_counts(self) -> list:
+        return [int(d) for d in torch.stack(self.dropped).cpu()]
+
+
+def rounding_errors(got, exp) -> dict:
+    got, exp = got.float(), exp.float()
+    d = got - exp
+    return {"rel_l2": float(d.norm() / exp.norm()),
+            "max_of_largest": float(d.abs().max() / exp.abs().max())}
+
+
+def assert_roundings(errs: dict, what: str) -> None:
+    for k, limit in MOE_ROUNDING_TOL.items():
+        assert errs[k] <= limit, f"{what}: {errs} beyond {MOE_ROUNDING_TOL}"
+
+
+def topk_gap(logits, k: int):
+    """The gap between the k-th and (k+1)-th largest router logit, over the
+    largest |logit| of the row."""
+    top = torch.sort(logits, -1, descending=True).values
+    return (top[..., k - 1] - top[..., k]) / top.abs().amax(-1)
+
+
+def moe_check_loop(model, inputs: dict) -> dict:
+    """moe_ffn against the plain per-expert loop on layers' real prefill
+    inputs: equal keep masks, outputs to bfloat16 roundings."""
+    from repro_torch.models.moe import moe_ffn, moe_ffn_loop, route
+
+    out = {}
+    with torch.inference_mode():
+        for li, x in sorted(inputs.items()):
+            p = model.layers[li].moe
+            got = moe_ffn(p, x, model.cfg)
+            exp, keep = moe_ffn_loop(p, x, model.cfg)
+            assert torch.equal(keep, route(p, x, model.cfg).keep), \
+                f"layer {li}: keep masks differ from the per-expert loop"
+            errs = rounding_errors(got, exp)
+            assert_roundings(errs, f"moe_ffn vs the loop, layer {li}")
+            out[li] = {"dropped": int((~keep).sum()), **errs}
+    print(f"moe_ffn vs the per-expert loop on the prefill's layer inputs "
+          f"(equal keep masks; tolerance {MOE_ROUNDING_TOL}): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def moe_check_cpu(model, tokens) -> dict:
+    """The first MOE_CPU_LAYERS layers on (1, PROMPT) tokens: each layer's
+    attention from the card's layer input, and its MoE from the card's MoE
+    input, run again on the CPU with the layer's weights.  Top-8 choices
+    equal except at near-ties (the CPU's topk_gap below MOE_TIE_REL);
+    outputs of the tokens routed and kept alike on both to bfloat16
+    roundings.  The layers advance on the card."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import attention, rms_norm
+    from repro_torch.models.moe import moe_ffn, route
+
+    cfg = model.cfg
+    k = cfg.moe.top_k
+    out = []
+    with torch.inference_mode():
+        h = M._embed(model, tokens)
+        for li in range(MOE_CPU_LAYERS):
+            bp = model.layers[li]
+            cpu = M.MoEBlock(cfg, torch.bfloat16, "cpu")
+            cpu.load_state_dict(bp.state_dict())
+            a = attention(bp.attn, rms_norm(h, bp.ln1), cfg)
+            a_cpu = attention(cpu.attn, rms_norm(h.cpu(), cpu.ln1), cfg)
+            h = h + a
+            ff = rms_norm(h, bp.ln2)
+            r, y = route(bp.moe, ff, cfg), moe_ffn(bp.moe, ff, cfg)
+            ff_cpu = ff.cpu()
+            r_cpu, y_cpu = route(cpu.moe, ff_cpu, cfg), moe_ffn(cpu.moe,
+                                                                ff_cpu, cfg)
+            tie = topk_gap(ff_cpu.reshape(-1, cfg.d_model).float()
+                           @ cpu.moe.router, k) < MOE_TIE_REL
+            differ = (r.topi.cpu() != r_cpu.topi).any(-1)
+            assert not (differ & ~tie).any(), \
+                f"layer {li}: top-{k} differs at tokens " \
+                f"{(differ & ~tie).nonzero().flatten().tolist()}"
+            alike = ~differ & (r.keep.cpu() == r_cpu.keep).all(-1)
+            if not tie.any():
+                assert alike.all(), f"layer {li}: keep masks differ"
+            y, y_cpu = y.reshape(-1, cfg.d_model).cpu(), \
+                y_cpu.reshape(-1, cfg.d_model)
+            errs = {"attention": rounding_errors(a.cpu(), a_cpu),
+                    "moe": rounding_errors(y[alike], y_cpu[alike])}
+            for part, e in errs.items():
+                assert_roundings(e, f"card vs CPU, layer {li} {part}")
+            out.append({"layer": li, "near_ties": int(tie.sum()),
+                        "top_k_differs": int(differ.sum()),
+                        "compared_tokens": int(alike.sum()),
+                        "dropped": int((~r.keep).sum()), **errs})
+            h = h + y.to(h.device).reshape(h.shape)
+            del cpu
+    print(f"card vs CPU, layers 0-{MOE_CPU_LAYERS - 1} on 1 x "
+          f"{tokens.shape[1]} tokens (near-tie: topk_gap below {MOE_TIE_REL} "
+          f"on the CPU): " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def moe_check_decode(model, prompt) -> dict:
+    """Decode against prefill on MOE_NODROP_BATCH sequences of PROMPT
+    tokens, under a copy of the config with capacity_factor E / top_k, so
+    that C >= T and no slot drops on either path.
+
+    At full size the two paths cannot meet DECODE_TOL, nor can two
+    prefills: olmoe's experts (std 1/8, ROADMAP C8) amplify bfloat16
+    roundings, and where a token's 8th and 9th router logits nearly tie,
+    one rounding sends it to another expert, whose output then reaches
+    every later position through attention.  So the yardstick is the
+    prefill's own spread: a second prefill with the online attention
+    (models.layers.set_attention_impl), each layer's top-k held to the
+    blocked prefill's, against that prefill.  Decode with the top-k held
+    the same way must agree with the prefill within MOE_DECODE_SLACK times
+    that spread (largest |logit diff| and largest relative L2 of a
+    position's logits).  Decode as served must do so at every position
+    before a sequence's first top-k difference (any layer), and at that
+    difference the MoE input's relative L2 distance from the prefill's is
+    no more than the held decode's largest: a rounding flipped a
+    near-tie."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.layers import set_attention_impl
+
+    cfg = model.cfg
+    m, L = cfg.moe, cfg.num_layers
+    seqs = prompt[:MOE_NODROP_BATCH]
+    B, S = seqs.shape
+    real = moe.route
+    calls = []
+
+    def recorded(p, x, c):
+        r = real(p, x, c)
+        calls.append((x.reshape(-1, cfg.d_model), r.topi))
+        return r
+
+    def held(p, x, c):
+        """The prefill's top-k for this call: the layer's in a forward, the
+        layer's at this position in a decode step."""
+        layer, t = len(calls) % L, len(calls) // L
+        topi = (pre_topi[layer].reshape(B * S, -1) if x.shape[1] == S
+                else pre_topi[layer][:, t])
+        x = x.reshape(-1, cfg.d_model)
+        calls.append((x, topi))
+        gates = torch.softmax((x.float() @ p.router).gather(1, topi), -1)
+        pos = moe.slot_positions(topi, m.num_experts)
+        C = moe.capacity(x.shape[0], m.top_k, m.num_experts,
+                         c.moe.capacity_factor)
+        return moe.Routing(topi, gates, pos, pos < C, C)
+
+    def decode(route):
+        calls.clear()
+        moe.route = route
+        cache = M.init_cache(model.cfg, B, S, device=seqs.device)
+        out = [M.decode_step(model, cache, seqs[:, t], t)[0]
+               for t in range(S)]
+        return torch.stack(out, 1).float()
+
+    def spread(got, exp) -> dict:
+        rel = (got - exp).norm(dim=-1) / exp.norm(dim=-1)
+        return {"max_diff": float((got - exp).abs().max()),
+                "max_rel_l2": float(rel.max()),
+                "argmax": float((got.argmax(-1) == exp.argmax(-1))
+                                .float().mean())}
+
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    try:
+        with torch.inference_mode():
+            moe.route = recorded
+            full = M.forward(model, seqs).float()
+            pre_x = [x.reshape(B, S, -1) for x, _ in calls]
+            pre_topi = [t.reshape(B, S, -1) for _, t in calls]
+            calls.clear()
+            moe.route = held
+            set_attention_impl("online")
+            try:
+                online = M.forward(model, seqs).float()
+            finally:
+                set_attention_impl("blocked")
+            forced = decode(held)
+            # each decode call's MoE input against the prefill's
+            drift = torch.stack([
+                (x.float() - pre_x[i % L][:, i // L].float()).norm(dim=-1)
+                / pre_x[i % L][:, i // L].float().norm(dim=-1)
+                for i, (x, _) in enumerate(calls)])
+            served = decode(recorded)
+            dec = calls[:]
+    finally:
+        moe.route = real
+        model.cfg = cfg
+
+    yardstick = spread(online, full)
+    limits = {k: MOE_DECODE_SLACK * yardstick[k]
+              for k in ("max_diff", "max_rel_l2")}
+    held_err = spread(forced, full)
+    first, before = [], []
+    for b in range(B):
+        flip = next(((t, li) for t in range(S) for li in range(L)
+                     if not torch.equal(dec[t * L + li][1][b].sort().values,
+                                        pre_topi[li][b, t].sort().values)),
+                    None)
+        upto = S if flip is None else flip[0]
+        if upto:
+            before.append(spread(served[b, :upto], full[b, :upto]))
+        if flip is not None:
+            t, li = flip
+            errs = rounding_errors(dec[t * L + li][0][b], pre_x[li][b, t])
+            gap = float(topk_gap(pre_x[li][b, t].float()
+                                 @ model.layers[li].moe.router, m.top_k))
+            first.append({"seq": b, "pos": t, "layer": li,
+                          "prefill_gap": gap, "input_rel_l2":
+                          errs["rel_l2"]})
+    out = {"online_prefill_vs_prefill": yardstick, "limits": limits,
+           "held_topk": held_err,
+           "held_input_drift": {"median": float(drift.median()),
+                                "max": float(drift.max())},
+           "served_first_topk_difference": first,
+           "served_before_it": {k: max(e[k] for e in before)
+                                for k in ("max_diff", "max_rel_l2")},
+           "served_argmax_last": float((served[:, -1].argmax(-1)
+                                        == full[:, -1].argmax(-1))
+                                       .float().mean())}
+    print(f"decode vs prefill, {B} x {S} tokens, capacity_factor "
+          f"{m.num_experts / m.top_k} (nothing dropped; limits "
+          f"{MOE_DECODE_SLACK} x the online prefill's spread): "
+          + json.dumps(out), flush=True)
+    for what, e in [("held top-k", held_err)] + [
+            (f"served, before sequence {i}'s first top-k difference", e)
+            for i, e in enumerate(before)]:
+        for k, limit in limits.items():
+            assert e[k] <= limit, f"decode vs prefill, {what}: {e} {limits}"
+    for f in first:
+        assert f["input_rel_l2"] <= float(drift.max()), f
+    return out
+
+
+def moe_profiles(model, tokens, prompt) -> dict:
+    """torch.profiler over layer 0 of the prefill (its 2 x 32,768 tokens)
+    and over one decode step at batch 128: the device's busy share and its
+    TOP_DEVICE_OPS operations by device time."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import NOSHARD
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        h = M._embed(model, tokens)
+        layer = device_profile(lambda: M._apply_block(
+            "moe", model.layers[0], None, h, cfg, NOSHARD, True))
+        del h
+        cache = M.init_cache(cfg, DECODE_BATCH, PROMPT + GENERATE,
+                             device=tokens.device)
+        for t in range(2):  # warm-up
+            M.decode_step(model, cache, prompt[:, t], t)
+        step = device_profile(
+            lambda: M.decode_step(model, cache, prompt[:, 2], 2))
+    out = {}
+    for name, prof in (("prefill_layer_0", layer), ("decode_step", step)):
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])
+        out[name] = {k: prof[k] for k in ("window_ms", "busy_ms",
+                                          "busy_share", "device_events")}
+        out[name]["top"] = [[n[:90], round(ms / 1e3, 3), count]
+                            for n, (ms, count) in top[:TOP_DEVICE_OPS]]
+        print(f"profile, {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def serve_moe(dev, seed: int) -> dict:
+    """olmoe-1b-7b at full width and depth, random bf16 weights from a
+    seeded generator: one prefill_32k step (batch cut to 2), then 128
+    sequences decoded through make_serve_step (a 256-token prompt token by
+    token, then 32 greedy tokens: 288 steps).  The launch counts go to 0
+    just before and are read just after (the path has no hand-written
+    kernel: the expert products are torch.bmm, as the JAX package computes
+    them in jnp); the three checks and two profiles follow outside that
+    window.  Returns the numbers of the ``moe:`` line."""
+    from repro_torch.configs.base import LM_SHAPES, get_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    shape = LM_SHAPES["prefill_32k"]
+    decode_shape = LM_SHAPES["decode_32k"]
+    full_logits = shape.global_batch * shape.seq_len * cfg.vocab_size * 2
+    kv = (2 * cfg.num_layers * decode_shape.global_batch
+          * decode_shape.seq_len * cfg.num_kv_heads * cfg.resolved_head_dim
+          * 2)
+    print(f"MoE serving path: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}"
+          f" (qk-norm {cfg.qk_norm}), {m.num_experts} experts of width "
+          f"{m.d_ff_expert}, top-{m.top_k}, capacity factor "
+          f"{m.capacity_factor}, vocab {cfg.vocab_size}; bf16 weights from "
+          f"torch.Generator seed {seed}", flush=True)
+    print(f"cut: prefill_32k's batch {shape.global_batch} -> "
+          f"{PREFILL_BATCH} (its full-sequence bf16 logits would take "
+          f"{full_logits / 1e9:.1f} GB)", flush=True)
+    print(f"cut: decode_32k's batch {decode_shape.global_batch} kept, its "
+          f"{decode_shape.seq_len:,}-token context cut to a {PROMPT}-token "
+          f"prompt and {GENERATE} new tokens (its KV cache would take "
+          f"{kv / 1e9:.0f} GB)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = M.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"parameters: {n_params:,} ({n_bytes / 1e9:.2f} GB)", flush=True)
+    assert n_params == MOE_PARAMS, n_params
+    prefill = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, shape.seq_len),
+                           generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, PROMPT),
+                           generator=gen, device=dev)
+    prefill(model, tokens[:, :1024])  # warm-up: library handles, not counted
+    torch.cuda.synchronize()
+
+    registry.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog(keep_inputs=MOE_LOOP_LAYERS) as pre:
+        t0 = time.perf_counter()
+        nxt = prefill(model, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as dec:
+        t0 = time.perf_counter()
+        cache = M.init_cache(cfg, DECODE_BATCH, PROMPT + GENERATE, device=dev)
+        for t in range(PROMPT - 1):
+            _, cache = serve(model, cache, prompt[:, t], t)
+        last, cache = M.decode_step(model, cache, prompt[:, -1], PROMPT - 1)
+        tok = last.argmax(-1).to(torch.int32)
+        out = [tok]
+        for t in range(PROMPT, PROMPT + GENERATE):
+            tok, cache = serve(model, cache, tok, t)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    decode_peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in registry.launch_counts().items() if v}
+    del cache
+
+    slots = PREFILL_BATCH * shape.seq_len * m.top_k
+    prefill_dropped = pre.dropped_counts()
+    steps = PROMPT + GENERATE
+    decode_slots = DECODE_BATCH * m.top_k * steps * cfg.num_layers
+    decode_dropped = sum(dec.dropped_counts())
+    assert len(prefill_dropped) == cfg.num_layers
+    assert len(dec.C) == cfg.num_layers * steps
+    print(f"prefill {PREFILL_BATCH} x {shape.seq_len}: {prefill_s:.3f} s, "
+          f"{PREFILL_BATCH * shape.seq_len / prefill_s:,.0f} tokens/s, peak "
+          f"{prefill_peak / 2**30:.2f} GiB, C {sorted(set(pre.C))}",
+          flush=True)
+    print("prefill dropped share by layer: " + json.dumps(
+        [round(d / slots, 6) for d in prefill_dropped]), flush=True)
+    print(f"decode {DECODE_BATCH} sequences x {steps} steps: {decode_s:.3f} "
+          f"s, {decode_s / steps * 1e3:.2f} ms a step, "
+          f"{DECODE_BATCH * steps / decode_s:,.0f} tokens/s, peak "
+          f"{decode_peak / 2**30:.2f} GiB, C {sorted(set(dec.C))}, dropped "
+          f"{decode_dropped} of {decode_slots} slots", flush=True)
+    print(f"launches on the MoE path: {launches}", flush=True)
+    assert not launches, "the MoE path launched a hand-written kernel"
+
+    # --- checks, outside the counted window
+    generated = torch.stack(out, 1)
+    assert generated.shape == (DECODE_BATCH, GENERATE + 1)
+    assert 0 <= int(generated.min()) and \
+        int(generated.max()) < cfg.vocab_size
+    assert nxt.shape == (PREFILL_BATCH,) and torch.isfinite(last.float()).all()
+    prefill_C, decode_C = sorted(set(pre.C)), sorted(set(dec.C))
+    loop = moe_check_loop(model, pre.inputs)
+    del pre
+    cpu = moe_check_cpu(model, prompt[:1])
+    decoded = moe_check_decode(model, prompt)
+    profiles = moe_profiles(model, tokens, prompt)
+    del model
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "parameters": n_params,
+            "prefill": {"batch": PREFILL_BATCH, "seq": shape.seq_len,
+                        "s": prefill_s,
+                        "tokens_per_s": PREFILL_BATCH * shape.seq_len
+                        / prefill_s,
+                        "peak_gib": prefill_peak / 2**30, "C": prefill_C,
+                        "dropped_share": [d / slots
+                                          for d in prefill_dropped]},
+            "decode": {"batch": DECODE_BATCH, "steps": steps,
+                       "ms_per_step": decode_s / steps * 1e3,
+                       "tokens_per_s": DECODE_BATCH * steps / decode_s,
+                       "peak_gib": decode_peak / 2**30, "C": decode_C,
+                       "dropped_share": decode_dropped / decode_slots},
+            "checks": {"loop": loop, "cpu": cpu,
+                       "decode_vs_prefill": decoded},
+            "profiles": profiles}
+
+
 def flash_phase(dev, rng) -> dict:
     """flash_attention's own entry point, once, at zamba2-1.2b's shared
     attention (no model path calls it), through the tensor-core route;
@@ -2013,8 +2477,9 @@ def main() -> int:
     card, dev, rng = ready
     checked, round_trip = sql_phases(dev, rng)
 
-    lm_launches = {"ssd_scan": serve_lm(dev, args.seed),
-                   **flash_phase(dev, rng)}
+    ssd_launches = serve_lm(dev, args.seed)
+    moe = serve_moe(dev, args.seed)
+    lm_launches = {"ssd_scan": ssd_launches, **flash_phase(dev, rng)}
     trained = train_lm(dev, args.seed)
     work = os.path.join(HERE, "build", "chip_smoke_wh")
     launches = {**main_path(args.rows, work, round_trip["split"]),
@@ -2047,6 +2512,7 @@ def main() -> int:
                                   ("ssd_scan@N64", "ssd_scan@N64 large")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print("train: " + json.dumps(trained), flush=True)
+    print("moe: " + json.dumps(moe), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,15 +5,16 @@ pattern periods are unrolled (period p, position i -> layer p*period + i),
 then the unscanned tail.  zamba2's shared attention block is one module,
 ``LM.shared``, applied at every ``shared_attn`` position.  Parameters keep
 the JAX package's names (``embed``, ``lm_head``, ``final_norm``; per block
-``ln``/``mamba`` or ``ln1``/``ln2``/``attn``/``mlp``), so that
-``models.convert`` can carry its parameter trees across.
+``ln``/``mamba``, ``ln1``/``ln2``/``attn``/``mlp`` or
+``ln1``/``ln2``/``attn``/``moe``), so that ``models.convert`` can carry its
+parameter trees across.
 
 ``forward`` (train and prefill), ``init_cache`` and ``decode_step`` keep
 the JAX names.  ``forward`` records for autograd where grad is enabled (the
 train step takes it with ``use_kernel=False`` and ``remat``, whose modes
 are the JAX package's); ``decode_step`` and the serving steps run under
-``torch.inference_mode()``.  The ``moe`` block kind waits for the rest of
-ROADMAP A5 and raises.
+``torch.inference_mode()``.  A ``moe`` block's FFN is ``models.moe``'s
+capacity-routed ``moe_ffn`` in prefill, decode and training alike.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..configs.base import ModelConfig
 from .layers import (NOSHARD, MLP, Attention, ShardCtx, attention,
                      decode_attention, mlp, param, rms_norm, trunc_normal)
 from .mamba2 import Mamba2, mamba2_decode, mamba2_forward, mamba2_init_cache
+from .moe import MoE, moe_ffn
 
 ATTN_KINDS = ("attn", "local", "global")
 
@@ -63,6 +65,24 @@ class AttnBlock(nn.Module):
         self.mlp.reset_parameters(generator)
 
 
+class MoEBlock(nn.Module):
+    """Attention + capacity-routed MoE FFN with pre-norms."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = param((cfg.d_model,), torch.float32, device)
+        self.ln2 = param((cfg.d_model,), torch.float32, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln1.fill_(1.0)
+        self.ln2.fill_(1.0)
+        self.attn.reset_parameters(generator)
+        self.moe.reset_parameters(generator)
+
+
 class SharedSlot(nn.Module):
     """A ``shared_attn`` position: no weights of its own (they are
     ``LM.shared``)."""
@@ -79,9 +99,7 @@ def _make_block(kind: str, cfg: ModelConfig, dtype, device) -> nn.Module:
     if kind in ATTN_KINDS:
         return AttnBlock(cfg, dtype, device)
     if kind == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the 'moe' block kind is not ported yet (ROADMAP "
-            f"A5: models/moe.py)")
+        return MoEBlock(cfg, dtype, device)
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -147,8 +165,10 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return h.to(torch.bfloat16)
 
 
-def _mlp_part(bp: AttnBlock, h, cfg: ModelConfig, ctx: ShardCtx):
+def _mlp_part(bp: nn.Module, h, cfg: ModelConfig, ctx: ShardCtx):
     ff_in = rms_norm(h, bp.ln2, plus_one=cfg.scale_embeddings)
+    if isinstance(bp, MoEBlock):
+        return h + moe_ffn(bp.moe, ff_in, cfg, ctx)
     return h + mlp(bp.mlp, ff_in, cfg, ctx)
 
 

@@ -13,7 +13,11 @@ Tolerances, on bfloat16 logits:
 - attention archs use torch's fused silu/gelu, which round once where JAX
   rounds after each op of x * sigmoid(x), so they agree to atol/rtol 0.15,
   the JAX package's own decode-vs-forward bound for bfloat16 differences
-  (observed up to 0.11 on logits near 3.5).
+  (observed up to 0.11 on logits near 3.5);
+- the MoE archs have no dense MLP, and the port's forward equals the JAX
+  package's op-by-op forward bit for bit, but ``JM.forward`` is compiled
+  (lax.scan, fused ops) and rounds elsewhere, so they take the attention
+  archs' bound too (observed: forward 0.055, decode 0.047).
 """
 import functools
 
@@ -42,8 +46,7 @@ from repro_torch.train.steps import (input_specs, make_prefill_step,
                                      make_serve_step, materialize_batch,
                                      softmax_xent)
 
-MOE_ARCHS = ("olmoe-1b-7b", "grok-1-314b")
-DENSE_ARCHS = [a for a in ARCH_IDS if a not in MOE_ARCHS]
+MOE_ARCHS = ["olmoe-1b-7b", "grok-1-314b"]
 SSM_TOL = dict(atol=1e-2, rtol=0)
 ATTN_TOL = dict(atol=0.15, rtol=0.15)
 
@@ -79,7 +82,7 @@ def _f32(x):
         else np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_jax(arch):
     jcfg, params, cfg, model = _pair(arch)
     jin, tin = _inputs(cfg, 2, 16)
@@ -111,7 +114,7 @@ def test_mamba2_block_matches_jax(use_kernel):
     np.testing.assert_allclose(_f32(got), _f32(exp), **SSM_TOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"] + MOE_ARCHS)
 def test_prefill_step_matches_jax(arch):
     jcfg, params, cfg, model = _pair(arch)
     jin, tin = _inputs(cfg, 2, 16, seed=1)
@@ -127,7 +130,8 @@ def test_prefill_step_matches_jax(arch):
         np.testing.assert_allclose(logits.max(-1), picked, **ATTN_TOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b", "qwen3-14b"]
+                         + MOE_ARCHS)
 def test_decode_step_matches_jax(arch):
     """Eight tokens through both decode steps, from empty caches."""
     jcfg, params, cfg, model = _pair(arch)
@@ -207,7 +211,7 @@ def test_init_draws_like_jax():
             assert abs(t.std() / j.std() - 1) < 0.1, name
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_count_matches_analytic(arch):
     cfg = reduced_config(get_config(arch))
     model = M.LM(cfg, device="meta")
@@ -228,12 +232,6 @@ def test_full_mamba2_130m_shapes():
     expected = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(tree))
     assert sum(p.numel() for p in model.parameters()) == expected
     assert model.layers[0].mamba.in_proj.shape == (768, 3352)
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="A5"):
-        M.LM(reduced_config(get_config(arch)), device="meta")
 
 
 def test_convert_refuses_a_mismatched_tree():

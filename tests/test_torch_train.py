@@ -23,7 +23,18 @@ updates.
   (test_torch_models.py, logits to 0.15): loss atol 1e-2 [5.1e-3], grad
   norm rtol 2e-2 [1.4e-2], moments' relative L2 error 0.1 [4.9e-2], the
   float32 parameters' updates 0.1 [7e-2], the bfloat16 parameters'
-  updates 0.2 [0.14].
+  updates 0.2 [0.14];
+- the MoE archs (olmoe-1b-7b, grok-1-314b) take the attention archs'
+  limits, but the float32 parameters' updates 0.2 [0.1164]: the port's
+  forward equals the JAX package's op-by-op (eager) forward bit for bit,
+  but its compiled train step rounds elsewhere (logits up to 0.04 apart),
+  and at one microbatch grok-1-314b's step sends one token of 32 in layer
+  1, whose 2nd and 3rd router logits lie 0.6% apart, to another expert.
+  That flip reads loss 8.7e-3, grad norm 3.1e-3, moments 4.5e-2, float32
+  updates 0.1164 (the layer's router 0.18), bfloat16 updates 0.15; the
+  other three MoE cases read at most 1.9e-3, 2.4e-3, 1.2e-2, 5.4e-2 and
+  8.4e-2.  A faulty step (half the batch) reads 0.17-0.28 on the loss,
+  0.46-0.66 on the moments and 0.59-0.67 on both updates.
 The updates' errors come from the few elements whose gradients are near
 zero, where AdamW's normalised step m / sqrt(v) turns on a rounding: in
 mamba2-130m's microbatched step one element of a conv bias does so.  A
@@ -60,14 +71,13 @@ from repro_torch.train.optimizer import (AdamWState, adamw_init,
                                          opt_state_from_jax)
 from repro_torch.train.steps import make_train_step, materialize_batch
 
-MOE_ARCHS = ("olmoe-1b-7b", "grok-1-314b")
-DENSE_ARCHS = [a for a in ARCH_IDS if a not in MOE_ARCHS]
 SSM_STEP_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "moments": 1e-2,
                 "update": 2e-2, "update_microbatched": 5e-2,
                 "update_bf16": 0.1}
 ATTN_STEP_TOL = {"loss": 1e-2, "grad_norm": 2e-2, "moments": 0.1,
                  "update": 0.1, "update_microbatched": 0.1,
                  "update_bf16": 0.2}
+MOE_STEP_TOL = {**ATTN_STEP_TOL, "update": 0.2}
 LR = 3e-4
 
 
@@ -98,11 +108,12 @@ def _rel_l2(got: dict, exp: dict) -> float:
 
 @pytest.mark.parametrize("arch,microbatches", [
     pytest.param(a, mb, id=a if mb == 1 else f"{a}-mb{mb}")
-    for mb in (1, 2) for a in DENSE_ARCHS])
+    for mb in (1, 2) for a in ARCH_IDS])
 def test_train_step_matches_jax(arch, microbatches):
     jcfg = jx_reduced_config(jx_get_config(arch))
     cfg = reduced_config(get_config(arch))
-    tol = SSM_STEP_TOL if cfg.family == "ssm" else ATTN_STEP_TOL
+    tol = {"ssm": SSM_STEP_TOL, "moe": MOE_STEP_TOL}.get(cfg.family,
+                                                         ATTN_STEP_TOL)
     jbatch, batch = _batch(cfg, 2, 16)
     jstep = jax.jit(jx_make_train_step(jcfg, microbatches=microbatches,
                                        lr=LR))

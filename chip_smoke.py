@@ -65,7 +65,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      printed, the loss required to fall; an async checkpoint of the
      weights and optimiser state restored bit-equal into a fresh model;
      one step on 1 x 512 tokens on the card against the CPU, and one step
-     in each remat mode (none, per_period, sqrt) with its peak memory;
+     in each remat mode (none, per_period, sqrt) with its peak memory.
+     Then the distributed layer (``distributed_phase``): an NCCL group of
+     world size 1 (file store under build/) and a ("data",) mesh of 1, on
+     SSB's columns as load_ssb draws them (lineorder --rows, --seed):
+     the group sum of lo_revenue over the 2,556 dates (counts exact, sums
+     within float32's bound), the shuffle join with customer (every row
+     matched once, overflow 0, numpy's rows), the broadcast join with the
+     dates (numpy's join, row for row), and the int8 compressed psum over
+     a float32 tree of mamba2-130m's parameter shapes (payloads, scales and
+     result bit-equal to the CPU's, within 2% of the plain all-reduce);
+     ms a call (CUDA events, median of 5), rows/s and peak memory, and
+     ``distributed: {...}`` before the card line; it launches none of the
+     eight kernels (torch ops and collectives, as the JAX package computes
+     them in jnp);
   5. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
      13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
@@ -78,7 +91,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernels' counters must have risen;
   6. print the launches by route and path, the ``kernels`` JSON line (all
      eight kernels), the training phase's numbers (``train: {...}``), the
-     MoE phase's (``moe: {...}``), the card line, and last ``{"ok": true,
+     MoE phase's (``moe: {...}``), the distributed phase's
+     (``distributed: {...}``), the card line, and last ``{"ok": true,
      "device": {...}}``.
 
 ``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
@@ -2398,6 +2412,217 @@ def train_remat(dev, model, opt, batch) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: relational operators and the compressed psum over
+# NCCL at world size 1 (one card; NCCL takes one rank a card)
+# ---------------------------------------------------------------------------
+DIST_REPS = 5   # timed calls a operator, after one warm-up; the median
+# the compressed psum against the plain all-reduce, as a fraction of the
+# plain result's largest magnitude (tests/test_distributed.py:101)
+COMPRESS_REL_TOL = 0.02
+DIST_ARCH = "mamba2-130m"  # the psum's tree: its parameters' shapes
+
+
+def _median_ms(fn) -> tuple:
+    """(median ms of DIST_REPS calls by CUDA events after one warm-up,
+    peak bytes allocated during them, the last call's result)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DIST_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), torch.cuda.max_memory_allocated(), out
+
+
+def _dist_profile(name: str, run) -> dict:
+    """One call of ``run`` under torch.profiler: the device's busy share of
+    the window, its events and the top device operations (name, ms,
+    launches), as moe_profiles reports them."""
+    prof = device_profile(run)
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])
+    out = {k: prof[k] for k in ("window_ms", "busy_ms", "busy_share",
+                                "device_events")}
+    out["top"] = [[n[:90], round(us / 1e3, 3), count]
+                  for n, (us, count) in top[:4]]
+    print(f"distributed {name}, one call under torch.profiler: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def distributed_phase(card: str, rows: int, seed: int) -> dict:
+    """The distributed layer's four operators on one card over NCCL (world
+    size 1, mesh ("data",) of 1): SSB's columns as load_ssb draws them
+    (lineorder ``rows``, date 2,556, customer 1,000, ``seed``).  (a) the
+    group sum of lo_revenue by lo_orderdate against numpy (counts exact,
+    sums within float32's bound for each group's count); (b) the shuffle
+    join of lineorder with customer on the customer key, every row matched
+    once, overflow 0, rows equal numpy's join; (c) the broadcast join with
+    the dates, equal to numpy's join row for row; (d) the compressed psum
+    over a float32 tree of mamba2-130m's parameter shapes, its int8
+    payloads, scales and result equal to the same computation on the CPU
+    (a gloo group of one), within COMPRESS_REL_TOL of the plain
+    all-reduce.  Times by CUDA events; the process group is destroyed at
+    the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    rdv = os.path.join(HERE, "build", "distributed_rdv")
+    os.makedirs(os.path.dirname(rdv), exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    backend = init_process_group(0, 1, device="cuda",
+                                 init_method=f"file://{rdv}")
+    assert backend == "nccl" and dist.get_backend() == "nccl", backend
+    try:
+        return _distributed_ops(card, rows, seed, backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def _distributed_ops(card: str, rows: int, seed: int, backend: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.compression import (
+        compressed_psum, psum_with_optional_compression, quantize_int8)
+    from repro_torch.distributed.relational import (
+        make_broadcast_join, make_distributed_group_sum, make_shuffle_join)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.workloads.ssb import ssb_columns
+
+    dev = torch.device("cuda")
+    mesh = make_mesh((1,), ("data",), "cuda")
+    cols = ssb_columns(rows, seed)
+    lo, cust, date = cols["lineorder"], cols["customer"], cols["date_dim"]
+    world = dist.get_world_size()
+    print(f"distributed phase: {card}; world_size: {world}, backend: "
+          f"{backend}, mesh {mesh.mesh_dim_names} = {tuple(mesh.shape)}; "
+          f"lineorder {rows} rows, date {len(date['d_datekey'])}, customer "
+          f"{len(cust['c_custkey'])}, seed {seed}", flush=True)
+
+    def on_card(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(dev)
+
+    o_date = on_card(lo["lo_orderdate"], np.int32)
+    o_cust = on_card(lo["lo_custkey"], np.int32)
+    o_rev32 = lo["lo_revenue"].astype(np.float32)
+    o_rev = on_card(o_rev32, np.float32)
+    c_key = on_card(cust["c_custkey"], np.int32)
+    # a value column of customer: its nation's number
+    c_val32 = np.char.replace(cust["c_nation"].astype(str), "NATION_",
+                              "").astype(np.float32)
+    c_val = on_card(c_val32, np.float32)
+    d_key = on_card(date["d_datekey"], np.int32)
+    d_val32 = date["d_yearmonthnum"].astype(np.float32)
+    d_val = on_card(d_val32, np.float32)
+    n = rows
+    report = {"card": card, "world_size": world, "backend": backend,
+              "rows": n}
+
+    def record(name, ms, peak, nbytes, extra):
+        report[name] = {"ms": round(ms, 4), "rows_per_s": round(n / ms * 1e3),
+                        "peak_gib": round(peak / 2**30, 3),
+                        "input_mb": round(nbytes / 1e6, 1), **extra}
+        print(f"distributed {name}: {ms:.4f} ms (median of {DIST_REPS}), "
+              f"{n / ms * 1e3:,.0f} rows/s, peak {peak / 2**30:.3f} GiB, "
+              f"inputs {nbytes / 1e6:.1f} MB; "
+              + json.dumps(extra), flush=True)
+
+    # (a) grouped SUM/COUNT of lo_revenue by lo_orderdate
+    G = len(date["d_datekey"])
+    gs = make_distributed_group_sum(mesh, G)
+    ms, peak, (sums, counts) = _median_ms(lambda: gs(o_date, o_rev))
+    exp_c = np.bincount(lo["lo_orderdate"], minlength=G)
+    exp_s = np.bincount(lo["lo_orderdate"], weights=o_rev32.astype(np.float64),
+                        minlength=G)
+    got_c, got_s = counts.cpu().numpy(), sums.cpu().numpy().astype(np.float64)
+    assert np.array_equal(got_c, exp_c.astype(np.float32)), "group counts"
+    # float32 sums of positive terms, added in any order: within count x
+    # 2^-23 of the float64 sum of the same float32 values
+    rel = np.abs(got_s - exp_s) / exp_s
+    bound = np.maximum(exp_c, 1) * 2.0 ** -23
+    assert (rel <= bound).all(), ("group sums", float((rel / bound).max()))
+    record("group_sum", ms, peak, 8 * n, {
+        "profile": _dist_profile("group_sum", lambda: gs(o_date, o_rev)),
+        "groups": G, "counts": "exact", "sums_max_rel_err": float(rel.max()),
+        "sums_rel_bound": "count * 2^-23"})
+
+    # (b) shuffle join lineorder x customer on the customer key
+    sj = make_shuffle_join(mesh, n)
+    ms, peak, (k, lv, rv, ovf) = _median_ms(
+        lambda: sj(o_cust, o_rev, c_key, c_val))
+    k, lv, rv = (t.cpu().numpy() for t in (k, lv, rv))
+    assert int(ovf) == 0, f"overflow {int(ovf)}"
+    assert (k >= 0).sum() == n, "every lineorder row matches once"
+    got = np.lexsort((lv, k))
+    exp = np.lexsort((o_rev32, lo["lo_custkey"]))
+    assert np.array_equal(k[got], lo["lo_custkey"][exp].astype(np.int32))
+    assert np.array_equal(lv[got], o_rev32[exp])
+    assert np.array_equal(rv, c_val32[k]), "right values"
+    record("shuffle_join", ms, peak, 8 * n + 8 * len(c_val32),
+           {"matched": int((k >= 0).sum()), "overflow": int(ovf),
+            "profile": _dist_profile(
+                "shuffle_join", lambda: sj(o_cust, o_rev, c_key, c_val))})
+
+    # (c) broadcast join lineorder x date on the order date
+    bj = make_broadcast_join(mesh)
+    ms, peak, (k, lv, rv) = _median_ms(lambda: bj(o_date, o_rev, d_key, d_val))
+    k, lv, rv = (t.cpu().numpy() for t in (k, lv, rv))
+    assert np.array_equal(k, lo["lo_orderdate"].astype(np.int32))
+    assert np.array_equal(lv, o_rev32) and np.array_equal(rv, d_val32[k])
+    record("broadcast_join", ms, peak, 8 * n + 8 * G,
+           {"matched": int((k >= 0).sum()),
+            "profile": _dist_profile(
+                "broadcast_join", lambda: bj(o_date, o_rev, d_key, d_val))})
+
+    # (d) the compressed psum over mamba2-130m's parameter shapes
+    shapes = {name: tuple(p.shape) for name, p in
+              M.LM(get_config(DIST_ARCH), device="meta").named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tree = {name: torch.randn(s, generator=gen, device=dev)
+            for name, s in shapes.items()}
+    elems = sum(t.numel() for t in tree.values())
+    group = mesh.get_group("data")
+    ms, peak, got = _median_ms(lambda: compressed_psum(tree, group))
+    plain = psum_with_optional_compression(tree, group, False)
+    rel = max(float((got[k] - plain[k]).abs().max()
+                    / (plain[k].abs().max() + 1e-9)) for k in tree)
+    assert rel < COMPRESS_REL_TOL, ("compressed psum", rel)
+    cpu_group = dist.new_group([0], backend="gloo")
+    cpu = {k: t.cpu() for k, t in tree.items()}
+    exp = compressed_psum(cpu, cpu_group)
+    for k in tree:
+        q, s = quantize_int8(tree[k])
+        q_cpu, s_cpu = quantize_int8(cpu[k])
+        assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu), k
+        assert torch.equal(got[k].cpu(), exp[k]), k
+    dist.destroy_process_group(cpu_group)
+    report["compressed_psum"] = {
+        "ms": round(ms, 4), "elements": elems, "leaves": len(tree),
+        "elements_per_s": round(elems / ms * 1e3),
+        "peak_gib": round(peak / 2**30, 3), "rel_err_vs_plain": rel,
+        "card_vs_cpu": "int8 payloads, scales and result bit-equal",
+        "profile": _dist_profile("compressed_psum",
+                                 lambda: compressed_psum(tree, group))}
+    print(f"distributed compressed_psum: {ms:.4f} ms (median of "
+          f"{DIST_REPS}), {elems:,} float32 elements in {len(tree)} leaves "
+          f"({DIST_ARCH}'s shapes), {elems / ms * 1e3:,.0f} elements/s, peak "
+          f"{peak / 2**30:.3f} GiB; error against the plain "
+          f"all-reduce {rel:.3e} of its largest magnitude (limit "
+          f"{COMPRESS_REL_TOL}); card vs CPU: int8 payloads, scales and "
+          f"result bit-equal", flush=True)
+    return report
+
+
 def prepare(seed: int):
     """Phases 1-2: the card's line, the build and its reports.  Returns
     (card line, device, rng); None without CUDA or the port's package."""
@@ -2481,6 +2706,7 @@ def main() -> int:
     moe = serve_moe(dev, args.seed)
     lm_launches = {"ssd_scan": ssd_launches, **flash_phase(dev, rng)}
     trained = train_lm(dev, args.seed)
+    distributed = distributed_phase(card, args.rows, args.seed)
     work = os.path.join(HERE, "build", "chip_smoke_wh")
     launches = {**main_path(args.rows, work, round_trip["split"]),
                 **lm_launches}
@@ -2513,6 +2739,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print("train: " + json.dumps(trained), flush=True)
     print("moe: " + json.dumps(moe), flush=True)
+    print("distributed: " + json.dumps(distributed), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

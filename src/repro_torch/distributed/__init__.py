@@ -1,2 +1,3 @@
-"""Fault tolerance for the port: checkpoints and save-on-preemption.  The
-sharded relational operators and gradient compression wait for ROADMAP A7."""
+"""The distributed layer: relational operators and gradient compression as
+``torch.distributed`` collectives, and sharded checkpoints with an elastic
+restore; save-on-preemption."""

@@ -17,11 +17,18 @@ numpy or scalar leaves (``None`` holds no leaf).  A model goes in as
 thread starts, so the caller blocks only for that copy; one save is in
 flight at a time.
 
-The port has no device mesh until ROADMAP A8, so ``shardings`` is a tree
-of ``None`` (one device): every leaf is written whole as shard 0 of 1 with
-spec ``null`` and an empty ``mesh_shape``, and restored onto its
-prototype's device.  Once A8 brings a mesh, the tree's leaves are the
-placements the leaves take there.
+``shardings`` is a tree shaped like ``tree`` (a missing or None leaf: one
+device) whose leaves are ``launch.sharding.NamedSharding``s.  A save with
+shardings or ``DTensor`` leaves is collective, as the JAX package writes
+it: every leaf is gathered whole (``DTensor.full_tensor``), global rank 0
+writes ``shard_0_of_1.npz`` and the manifest, with the mesh's ``{axis:
+size}`` as ``mesh_shape`` and each leaf's spec as a list (an axis name, a
+list of names or null per dimension), and a blocking save returns on
+every rank once the files are there (after an async one, once every rank
+has called ``wait``).
+``restore`` with shardings hands each rank its ``DTensor`` on the new mesh
+(``distribute_tensor`` with ``sharding.placements``), so a checkpoint saved
+on 4 ranks restores on 8.
 """
 from __future__ import annotations
 
@@ -31,10 +38,14 @@ import shutil
 import signal
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..launch.sharding import NamedSharding, axis_sizes, placements
 
 MANIFEST = "manifest.json"
 SHARD = "shard_0_of_1.npz"
@@ -89,12 +100,20 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _one_device(shardings) -> None:
-    if shardings is not None and any(
-            s is not None for _, s in _flatten(shardings)):
-        raise NotImplementedError(
-            "the port has no device mesh yet (ROADMAP A8): shardings must "
-            "be a tree of None")
+def _spec_to_json(spec) -> list:
+    return [list(ax) if isinstance(ax, tuple) else ax for ax in spec]
+
+
+def _shardings(shardings) -> Dict[str, NamedSharding]:
+    """The NamedSharding of each leaf path that has one."""
+    out = {}
+    for path, s in _flatten(shardings):
+        if not isinstance(s, NamedSharding):
+            raise NotImplementedError(
+                f"{path}: a sharding is a launch.sharding.NamedSharding on "
+                f"the port's mesh (ROADMAP A8) or None, not {s!r}")
+        out[path] = s
+    return out
 
 
 class CheckpointManager:
@@ -103,6 +122,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._pending: Optional[threading.Thread] = None
+        self._sync = False  # a collective save has yet to be waited for
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:010d}")
@@ -112,20 +132,30 @@ class CheckpointManager:
         """Write the checkpoint of ``step``; with ``blocking=False`` the
         files are written on a thread after the copy to the host."""
         self.wait()  # one save in flight at a time
-        leaves = list(_flatten(tree))
-        _one_device(shardings)
-        host = [(path, *_to_host(leaf)) for path, leaf in leaves]
+        shards = _shardings(shardings)
+        host, mesh_shape, collective = [], {}, bool(shards)
+        for path, leaf in _flatten(tree):
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()  # collective: every rank calls
+                collective = True
+            sh = shards.get(path)
+            if sh is not None:
+                mesh_shape = axis_sizes(sh.mesh)
+            host.append((path, *_to_host(leaf),
+                         None if sh is None else _spec_to_json(sh.spec)))
+        writes = not collective or dist.get_rank() == 0
 
         def write():
             d = self._dir(step)
             tmp = d + ".tmp"
             os.makedirs(tmp, exist_ok=True)
-            np.savez(os.path.join(tmp, SHARD), **{p: a for p, a, _ in host})
+            np.savez(os.path.join(tmp, SHARD),
+                     **{p: a for p, a, _, _ in host})
             manifest = {
                 "step": step,
-                "mesh_shape": {},
+                "mesh_shape": mesh_shape,
                 "leaves": [{"path": p, "shape": list(a.shape), "dtype": dt,
-                            "spec": None} for p, a, dt in host],
+                            "spec": spec} for p, a, dt, spec in host],
                 "written_at": time.time(),
             }
             with open(os.path.join(tmp, MANIFEST), "w") as f:
@@ -135,17 +165,25 @@ class CheckpointManager:
             os.replace(tmp, d)
             self._gc()
 
-        if blocking:
+        self._sync = collective
+        if writes and blocking:
             write()
-        else:
+        elif writes:
             self._pending = threading.Thread(target=write, daemon=True)
             self._pending.start()
+        if blocking:
+            self.wait()
         return step
 
     def wait(self) -> None:
+        """Wait for the save in flight; collective after a collective
+        save."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._sync:
+            self._sync = False
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in self.list_steps()[: -self.keep]:
@@ -163,7 +201,8 @@ class CheckpointManager:
         """(tree, step): the checkpoint of ``step`` (the latest by
         default) in the structure of ``tree_like``, every leaf a tensor of
         the saved dtype on its prototype's device (the CPU for a leaf that
-        is not a tensor)."""
+        is not a tensor), or, where ``shardings`` has a NamedSharding, this
+        rank's DTensor on its mesh."""
         steps = self.list_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -173,7 +212,7 @@ class CheckpointManager:
             manifest = json.load(f)
         dtypes = {m["path"]: m["dtype"] for m in manifest["leaves"]}
         protos = list(_flatten(tree_like))
-        _one_device(shardings)
+        shards = _shardings(shardings)
         out = []
         with np.load(os.path.join(d, SHARD)) as data:
             for path, proto in protos:
@@ -183,6 +222,11 @@ class CheckpointManager:
                         torch.bfloat16)
                 else:
                     t = torch.from_numpy(arr)
+                sh = shards.get(path)
+                if sh is not None:
+                    out.append(distribute_tensor(
+                        t, sh.mesh, placements(sh.spec, sh.mesh)))
+                    continue
                 device = (proto.device if isinstance(proto, torch.Tensor)
                           else "cpu")
                 out.append(t.to(device))

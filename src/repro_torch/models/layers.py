@@ -6,12 +6,16 @@ does too.  Parameters live in small ``nn.Module``s whose parameter names are
 the JAX package's dictionary keys (``wq``, ``w_up``, ...); the functions take
 such a module where the JAX functions take a parameter dictionary.
 
-``ShardCtx`` is kept for the signatures only: meshes come with ROADMAP A8,
-and ``constrain`` returns its input.
+``ShardCtx`` carries a mesh's axes (``launch.mesh.shard_ctx``), but the
+port runs no model sharded yet: ``constrain`` returns its input, and the
+calls mark where the JAX package constrains.  The ``*_axes`` functions give
+each parameter's preferred mesh axes, as the JAX package declares them
+(``launch.sharding`` resolves them against a mesh).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,15 +25,21 @@ from torch import nn
 from ..configs.base import ModelConfig
 
 
+@dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Activation-sharding helper: the identity until meshes are ported
-    (ROADMAP A8); the calls mark where the JAX package constrains."""
+    """A mesh's data-parallel axes, tensor-parallel axis and axis sizes;
+    ``constrain`` is the identity (no model runs sharded yet)."""
 
-    dp_spec = None
-    tp = None
+    dp: Tuple[str, ...] = ()  # data-parallel mesh axes ('pod','data') / ('data',)
+    tp: Optional[str] = None  # tensor-parallel axis ('model')
+    axis_sizes: Optional[Dict[str, int]] = None
 
     def constrain(self, x: torch.Tensor, spec: Tuple) -> torch.Tensor:
         return x
+
+    @property
+    def dp_spec(self):
+        return tuple(self.dp) if self.dp else None
 
 
 NOSHARD = ShardCtx()
@@ -125,6 +135,19 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     p = Attention(cfg, dtype, device)
     p.reset_parameters(generator)
     return p
+
+
+def attention_axes(cfg: ModelConfig):
+    a = {
+        "wq": ("data", "model"),
+        "wk": ("data", "model"),
+        "wv": ("data", "model"),
+        "wo": ("model", "data"),
+    }
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
 
 
 def _qkv(p: Attention, x, cfg: ModelConfig, ctx: ShardCtx, positions):
@@ -296,6 +319,13 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator,
     p = MLP(cfg, dtype, device)
     p.reset_parameters(generator)
     return p
+
+
+def mlp_axes(cfg: ModelConfig):
+    a = {"w_up": ("data", "model"), "w_down": ("model", "data")}
+    if cfg.gated_mlp:
+        a["w_gate"] = ("data", "model")
+    return a
 
 
 def _act(cfg: ModelConfig):

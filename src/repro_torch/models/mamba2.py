@@ -156,6 +156,19 @@ def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def mamba2_axes(cfg: ModelConfig):
+    return {
+        "in_proj": ("data", "model"),
+        "conv_w": ("model", None),
+        "conv_b": ("model",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": ("model",),
+        "out_proj": ("model", "data"),
+    }
+
+
 def _split_proj(zxbcdt, cfg):
     d_inner, nheads, conv_dim, _ = _dims(cfg)
     z = zxbcdt[..., :d_inner]

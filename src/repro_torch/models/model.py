@@ -27,10 +27,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import tree_map
 from .layers import (NOSHARD, MLP, Attention, ShardCtx, attention,
-                     decode_attention, mlp, param, rms_norm, trunc_normal)
-from .mamba2 import Mamba2, mamba2_decode, mamba2_forward, mamba2_init_cache
-from .moe import MoE, moe_ffn
+                     attention_axes, decode_attention, mlp, mlp_axes, param,
+                     rms_norm, trunc_normal)
+from .mamba2 import (Mamba2, mamba2_axes, mamba2_decode, mamba2_forward,
+                     mamba2_init_cache)
+from .moe import MoE, moe_axes, moe_ffn
 
 ATTN_KINDS = ("attn", "local", "global")
 
@@ -150,6 +153,95 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     model = LM(cfg, dtype, device)
     model.reset_parameters(generator)
     return model
+
+
+# ===========================================================================
+# sharding preferences (the JAX package's axes trees)
+# ===========================================================================
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(
+        isinstance(y, (str, type(None))) for y in x)
+
+
+def _block_axes(kind: str, cfg: ModelConfig):
+    if kind == "ssm":
+        return {"ln": (None,), "mamba": mamba2_axes(cfg)}
+    if kind == "shared_attn":
+        return {}
+    a = {"ln1": (None,), "ln2": (None,), "attn": attention_axes(cfg)}
+    if kind == "moe":
+        a["moe"] = moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_axes(cfg)
+    return a
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Preferred mesh axes of the JAX package's parameter tree (its scanned
+    periods stacked on a leading axis); equal to its ``param_axes``."""
+    axes: Dict = {}
+    if not cfg.embedding_stub:
+        axes["embed"] = ("model", "data")
+    if not cfg.tie_embeddings or cfg.embedding_stub:
+        axes["lm_head"] = ("data", "model")
+    period_axes = tuple(_block_axes(kind, cfg) for kind in cfg.layer_pattern)
+    # scanned leaves gain a leading (periods) dim -> prepend None
+    axes["scan"] = tree_map(lambda a: (None,) + tuple(a), period_axes,
+                            is_leaf=_is_axes)
+    axes["tail"] = tuple(_block_axes(kind, cfg) for kind in cfg.tail_pattern)
+    if cfg.shared_attention:
+        axes["shared"] = {
+            "ln1": (None,), "ln2": (None,),
+            "attn": attention_axes(cfg), "mlp": mlp_axes(cfg),
+        }
+    axes["final_norm"] = (None,)
+    return axes
+
+
+def named_param_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """:func:`param_axes` by the ``LM``'s parameter names: the layer of
+    period p at pattern position i takes its scanned leaf's axes without
+    the period axis."""
+    out: Dict[str, Tuple] = {}
+
+    def walk(tree, prefix: str) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                out[prefix + k] = v
+
+    walk({k: _block_axes(kind, cfg) for k, kind in
+          enumerate(layer_kinds(cfg))}, "layers.")
+    axes = param_axes(cfg)
+    walk({k: axes[k] for k in ("embed", "lm_head", "final_norm", "shared")
+          if k in axes}, "")
+    return out
+
+
+def cache_axes(cfg: ModelConfig, batch: int, dp_over_seq: bool) -> Dict:
+    """Sharding prefs for the JAX package's cache tree: batch on data when
+    it divides, else the sequence dim (long_500k, batch=1); kv-heads on
+    model when divisible.  Equal to its ``cache_axes``."""
+
+    def attn_axes():
+        if dp_over_seq:
+            return {"k": (None, "data", "model", None),
+                    "v": (None, "data", "model", None)}
+        return {"k": ("data", None, "model", None),
+                "v": ("data", None, "model", None)}
+
+    def block_axes(kind):
+        if kind == "ssm":
+            return {"conv": ("data", "model", None),
+                    "ssd": ("data", "model", None, None)}
+        return attn_axes()
+
+    per = tuple(block_axes(k) for k in cfg.layer_pattern)
+    return {
+        "scan": tree_map(lambda a: (None,) + tuple(a), per, is_leaf=_is_axes),
+        "tail": tuple(block_axes(k) for k in cfg.tail_pattern),
+    }
 
 
 # ===========================================================================

@@ -11,8 +11,6 @@ outside any Pallas kernel, so the products are ``torch.bmm``.
 The expert weights are drawn by ``trunc_normal`` with fan_in = shape[0],
 the expert count, as the JAX package's ``init_moe`` draws them (ROADMAP
 C8): olmoe's experts have std 1/8, not 1/sqrt(d_model).
-
-Sharding (``moe_axes``) comes with meshes, ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -48,6 +46,21 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator,
     p = MoE(cfg, dtype, device)
     p.reset_parameters(generator)
     return p
+
+
+def moe_axes(cfg: ModelConfig):
+    # preferred: experts on 'model'; the resolver drops axes that don't
+    # divide, falling back to the later dims' ('data','model') spec.
+    return {
+        "router": (None, None),
+        "w_gate": ("model", "data", None) if _experts_shardable(cfg) else (None, "data", "model"),
+        "w_up": ("model", "data", None) if _experts_shardable(cfg) else (None, "data", "model"),
+        "w_down": ("model", None, "data") if _experts_shardable(cfg) else (None, "model", "data"),
+    }
+
+
+def _experts_shardable(cfg: ModelConfig) -> bool:
+    return cfg.moe is not None and cfg.moe.num_experts >= 16
 
 
 class _Logistic(torch.autograd.Function):

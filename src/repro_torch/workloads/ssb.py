@@ -20,6 +20,61 @@ from ..core.acid import AcidTable
 from ..core.runtime.vector import VectorBatch
 
 
+def ssb_columns(scale_rows: int = 60_000, seed: int = 42) -> dict:
+    """Every table's columns as ``load_ssb`` draws them, ``{table:
+    {column: numpy array}}``: the same generator calls in the same order,
+    so a seed gives the same rows here and in the warehouse."""
+    rng = np.random.default_rng(seed)
+    n_dates, n_cust, n_supp, n_part = 2556, 1000, 200, 400
+    regions = np.array(["AMERICA", "ASIA", "EUROPE", "AFRICA", "MIDDLE EAST"])
+    nations = np.array([f"NATION_{i}" for i in range(25)])
+    cities = np.array([f"CITY_{i}" for i in range(50)])
+    out = {
+        "date_dim": {
+            "d_datekey": np.arange(n_dates),
+            "d_year": 1992 + np.arange(n_dates) // 365,
+            "d_month": (np.arange(n_dates) // 30) % 12 + 1,
+            "d_weeknum": (np.arange(n_dates) // 7) % 52 + 1,
+            "d_yearmonthnum": (1992 + np.arange(n_dates) // 365) * 100
+            + ((np.arange(n_dates) // 30) % 12 + 1),
+        },
+        "customer": {
+            "c_custkey": np.arange(n_cust),
+            "c_region": regions[rng.integers(0, 5, n_cust)],
+            "c_nation": nations[rng.integers(0, 25, n_cust)],
+            "c_city": cities[rng.integers(0, 50, n_cust)],
+        },
+        "supplier": {
+            "s_suppkey": np.arange(n_supp),
+            "s_region": regions[rng.integers(0, 5, n_supp)],
+            "s_nation": nations[rng.integers(0, 25, n_supp)],
+            "s_city": cities[rng.integers(0, 50, n_supp)],
+        },
+        "part": {
+            "p_partkey": np.arange(n_part),
+            "p_mfgr": np.array([f"MFGR_{i % 5}" for i in range(n_part)]),
+            "p_category": np.array([f"CAT_{i % 25}" for i in range(n_part)]),
+            "p_brand": np.array([f"BRAND_{i % 40}" for i in range(n_part)]),
+        },
+    }
+    n = scale_rows
+    price = rng.uniform(100, 10_000, n).round(2)
+    disc = rng.uniform(0, 0.1, n).round(3)
+    out["lineorder"] = {
+        "lo_orderkey": np.arange(n),
+        "lo_custkey": rng.integers(0, n_cust, n),
+        "lo_partkey": rng.integers(0, n_part, n),
+        "lo_suppkey": rng.integers(0, n_supp, n),
+        "lo_orderdate": rng.integers(0, n_dates, n),
+        "lo_quantity": rng.integers(1, 50, n),
+        "lo_extendedprice": price,
+        "lo_discount": disc,
+        "lo_revenue": (price * (1 - disc)).round(2),
+        "lo_supplycost": rng.uniform(50, 5000, n).round(2),
+    }
+    return out
+
+
 def load_ssb(wh, scale_rows: int = 60_000, seed: int = 42):
     s = wh.session()
     hms = wh.hms
@@ -36,54 +91,9 @@ def load_ssb(wh, scale_rows: int = 60_000, seed: int = 42):
         lo_extendedprice DOUBLE, lo_discount DOUBLE, lo_revenue DOUBLE,
         lo_supplycost DOUBLE)""")
 
-    rng = np.random.default_rng(seed)
-    n_dates, n_cust, n_supp, n_part = 2556, 1000, 200, 400
-    regions = np.array(["AMERICA", "ASIA", "EUROPE", "AFRICA", "MIDDLE EAST"])
-    nations = np.array([f"NATION_{i}" for i in range(25)])
-    cities = np.array([f"CITY_{i}" for i in range(50)])
-
     tx = hms.open_txn()
-    AcidTable(hms.get_table("date_dim"), hms).insert(tx, VectorBatch({
-        "d_datekey": np.arange(n_dates),
-        "d_year": 1992 + np.arange(n_dates) // 365,
-        "d_month": (np.arange(n_dates) // 30) % 12 + 1,
-        "d_weeknum": (np.arange(n_dates) // 7) % 52 + 1,
-        "d_yearmonthnum": (1992 + np.arange(n_dates) // 365) * 100
-        + ((np.arange(n_dates) // 30) % 12 + 1),
-    }))
-    AcidTable(hms.get_table("customer"), hms).insert(tx, VectorBatch({
-        "c_custkey": np.arange(n_cust),
-        "c_region": regions[rng.integers(0, 5, n_cust)],
-        "c_nation": nations[rng.integers(0, 25, n_cust)],
-        "c_city": cities[rng.integers(0, 50, n_cust)],
-    }))
-    AcidTable(hms.get_table("supplier"), hms).insert(tx, VectorBatch({
-        "s_suppkey": np.arange(n_supp),
-        "s_region": regions[rng.integers(0, 5, n_supp)],
-        "s_nation": nations[rng.integers(0, 25, n_supp)],
-        "s_city": cities[rng.integers(0, 50, n_supp)],
-    }))
-    AcidTable(hms.get_table("part"), hms).insert(tx, VectorBatch({
-        "p_partkey": np.arange(n_part),
-        "p_mfgr": np.array([f"MFGR_{i % 5}" for i in range(n_part)]),
-        "p_category": np.array([f"CAT_{i % 25}" for i in range(n_part)]),
-        "p_brand": np.array([f"BRAND_{i % 40}" for i in range(n_part)]),
-    }))
-    n = scale_rows
-    price = rng.uniform(100, 10_000, n).round(2)
-    disc = rng.uniform(0, 0.1, n).round(3)
-    AcidTable(hms.get_table("lineorder"), hms).insert(tx, VectorBatch({
-        "lo_orderkey": np.arange(n),
-        "lo_custkey": rng.integers(0, n_cust, n),
-        "lo_partkey": rng.integers(0, n_part, n),
-        "lo_suppkey": rng.integers(0, n_supp, n),
-        "lo_orderdate": rng.integers(0, n_dates, n),
-        "lo_quantity": rng.integers(1, 50, n),
-        "lo_extendedprice": price,
-        "lo_discount": disc,
-        "lo_revenue": (price * (1 - disc)).round(2),
-        "lo_supplycost": rng.uniform(50, 5000, n).round(2),
-    }))
+    for table, cols in ssb_columns(scale_rows, seed).items():
+        AcidTable(hms.get_table(table), hms).insert(tx, VectorBatch(cols))
     hms.commit_txn(tx)
 
 

@@ -1094,3 +1094,73 @@ def test_cuda_moe_train_step_matches_cpu(cuda):
                                rtol=5e-3)
     np.testing.assert_allclose(float(got["grad_norm"]),
                                float(exp["grad_norm"]), rtol=2e-2)
+
+
+def test_cuda_distributed_operators_over_nccl(cuda, tmp_path):
+    """The distributed layer at world size 1 over NCCL (one card), on SSB
+    columns of 100,000 rows, against numpy: the group sum (counts exact,
+    float32 sums within count x 2^-23 of numpy's float64 sums), the shuffle
+    and broadcast joins (equal to numpy's joins row for row, overflow 0),
+    and the compressed psum (its result equal to the same computation on
+    the CPU, within 2% of the plain all-reduce)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (
+        compressed_psum, psum_with_optional_compression)
+    from repro_torch.distributed.relational import (
+        make_broadcast_join, make_distributed_group_sum, make_shuffle_join)
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.workloads.ssb import ssb_columns
+
+    assert init_process_group(
+        0, 1, init_method=f"file://{tmp_path / 'rdv'}") == "nccl"
+    try:
+        mesh = make_mesh((1,), ("data",))
+        cols = ssb_columns(100_000, 0)
+        lo = cols["lineorder"]
+        date = _t(lo["lo_orderdate"].astype(np.int32), cuda)
+        cust = _t(lo["lo_custkey"].astype(np.int32), cuda)
+        rev32 = lo["lo_revenue"].astype(np.float32)
+        rev = _t(rev32, cuda)
+        G = len(cols["date_dim"]["d_datekey"])
+        sums, counts = make_distributed_group_sum(mesh, G)(date, rev)
+        exp_c = np.bincount(lo["lo_orderdate"], minlength=G)
+        exp_s = np.bincount(lo["lo_orderdate"], weights=rev32, minlength=G)
+        assert np.array_equal(_np(counts), exp_c.astype(np.float32))
+        rel = np.abs(_np(sums).astype(np.float64) - exp_s) / exp_s
+        assert (rel <= np.maximum(exp_c, 1) * 2.0 ** -23).all()
+
+        ckey = _t(cols["customer"]["c_custkey"].astype(np.int32), cuda)
+        cval32 = np.arange(len(ckey), dtype=np.float32) * 0.5
+        k, lv, rv, ovf = make_shuffle_join(mesh, len(rev32))(
+            cust, rev, ckey, _t(cval32, cuda))
+        k, lv, rv = _np(k), _np(lv), _np(rv)
+        assert int(ovf) == 0
+        got, exp = np.lexsort((lv, k)), np.lexsort((rev32, lo["lo_custkey"]))
+        assert np.array_equal(k[got], lo["lo_custkey"][exp])
+        assert np.array_equal(lv[got], rev32[exp])
+        assert np.array_equal(rv, cval32[k])
+
+        dval32 = cols["date_dim"]["d_yearmonthnum"].astype(np.float32)
+        k, lv, rv = make_broadcast_join(mesh)(
+            date, rev, _t(cols["date_dim"]["d_datekey"].astype(np.int32), cuda),
+            _t(dval32, cuda))
+        assert np.array_equal(_np(k), lo["lo_orderdate"])
+        assert np.array_equal(_np(lv), rev32)
+        assert np.array_equal(_np(rv), dval32[lo["lo_orderdate"]])
+
+        gen = torch.Generator().manual_seed(0)
+        tree = {"w": torch.randn(3, 5000, generator=gen),
+                "b": {"x": torch.randn(1024, generator=gen) * 100}}
+        group = mesh.get_group("data")
+        on_card = {"w": tree["w"].to(cuda), "b": {"x": tree["b"]["x"].to(cuda)}}
+        got = compressed_psum(on_card, group)
+        plain = psum_with_optional_compression(on_card, group, False)
+        cpu_group = dist.new_group([0], backend="gloo")
+        exp = compressed_psum(tree, cpu_group)
+        for g, p, e in ((got["w"], plain["w"], exp["w"]),
+                        (got["b"]["x"], plain["b"]["x"], exp["b"]["x"])):
+            assert torch.equal(g.cpu(), e)
+            assert float((g - p).abs().max() / p.abs().max()) < 0.02
+    finally:
+        dist.destroy_process_group()

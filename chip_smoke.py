@@ -78,7 +78,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ms a call (CUDA events, median of 5), rows/s and peak memory, and
      ``distributed: {...}`` before the card line; it launches none of the
      eight kernels (torch ops and collectives, as the JAX package computes
-     them in jnp);
+     them in jnp).  Then the dry run (``dryrun_phase``): DRYRUN_CELLS
+     through ``launch.dryrun.run_cell`` on a ``cuda`` mesh of the fake
+     process group (the two debug-mesh cells, and qwen3-14b x decode_32k
+     on 16 x 16), each cell's roofline line, then at world size 1 the
+     training step and the MoE prefill measured above, predicted (peak
+     memory, roofline time) beside what this run measured, and
+     ``dryrun: {...}`` before the card line; it allocates nothing on the
+     card and launches no kernel;
   5. load SSB (lineorder at SF1's 6,000,000 rows by default) and run the
      13 SSB queries plus KERNEL_QUERIES through repro_torch.api under
      ``engine: cuda`` and ``engine: auto`` (numpy host paths) on the same
@@ -92,7 +99,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   6. print the launches by route and path, the ``kernels`` JSON line (all
      eight kernels), the training phase's numbers (``train: {...}``), the
      MoE phase's (``moe: {...}``), the distributed phase's
-     (``distributed: {...}``), the card line, and last ``{"ok": true,
+     (``distributed: {...}``), the dry run's (``dryrun: {...}``), the card
+     line, and last ``{"ok": true,
      "device": {...}}``.
 
 ``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
@@ -2623,6 +2631,83 @@ def _distributed_ops(card: str, rows: int, seed: int, backend: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) on a cuda mesh of the fake process group
+# ---------------------------------------------------------------------------
+DRYRUN_CELLS = (("mamba2-130m", "train_4k", False, True),  # debug 2 x 4
+                ("qwen3-14b", "decode_32k", False, True),
+                ("qwen3-14b", "decode_32k", False, False))  # 16 x 16
+
+
+def _roofline_s(r: dict) -> tuple:
+    """(the largest of a dry-run artifact's three roofline terms, its
+    name)."""
+    rf = r["roofline"]
+    return max(rf["compute_s"], rf["memory_s"], rf["collective_s"]), \
+        rf["bottleneck"]
+
+
+def dryrun_phase(card: str, trained: dict, moe: dict) -> dict:
+    """The dry run through ``launch.dryrun.run_cell`` on a ``cuda`` mesh of
+    the fake process group, allocating nothing on the card: DRYRUN_CELLS,
+    each printed as the CLI prints it; then at world size 1 (a (1, 1)
+    mesh) the two shapes this run measured, mamba2-130m's training step at
+    train_lm's shape (TRAIN_BATCH x 4,096, TRAIN_MICROBATCHES
+    microbatches, remat) and olmoe-1b-7b's prefill at serve_moe's
+    (PREFILL_BATCH x 32,768): each predicted peak (argument + temp bytes)
+    beside the peak measured above, and the roofline time (the largest of
+    its three terms) beside the measured time (the median of steps 2-6;
+    the prefill), as a share.  A failed cell raises."""
+    from repro_torch.configs.base import LM_SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+
+    out_dir = os.path.join(HERE, "build", "dryrun")
+    report = {"card": card, "cells": {}}
+    t0 = time.perf_counter()
+    for arch, shape, multi_pod, debug in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, multi_pod, debug, out_dir=out_dir)
+        assert r["device"] == "cuda", r["device"]
+        cell = f"{arch} x {shape} x {r['mesh']}"
+        print("dryrun " + dryrun.ok_line(cell, r), flush=True)
+        report["cells"][cell] = {
+            "trace_s": r["compile_seconds"], "roofline": r["roofline"],
+            "peak_gib": r["peak_bytes_per_device"] / 2**30,
+            "fits_h100": r["fits_h100"],
+            "collectives": r["collectives"]["per_device_bytes_by_link"]}
+    step_s = float(np.median(trained["step_ms"][1:])) / 1e3
+    predictions = (
+        ("train_lm", LM_ARCH,
+         ShapeConfig("train_lm", LM_SHAPES["train_4k"].seq_len, TRAIN_BATCH,
+                     "train"), TRAIN_MICROBATCHES,
+         trained["peak_gib"], step_s),
+        ("serve_moe", MOE_ARCH,
+         ShapeConfig("serve_moe", LM_SHAPES["prefill_32k"].seq_len,
+                     PREFILL_BATCH, "prefill"), None,
+         moe["prefill"]["peak_gib"], moe["prefill"]["s"]))
+    for name, arch, shape, mb, peak, secs in predictions:
+        r = dryrun.run_cell(arch, shape, False, False, out_dir=out_dir,
+                            mb_override=mb, mesh_shape=(1, 1))
+        predicted = r["peak_bytes_per_device"] / 2**30
+        bound, by = _roofline_s(r)
+        report[name] = {
+            "arch": arch, "batch": shape.global_batch, "seq": shape.seq_len,
+            "trace_s": r["compile_seconds"], "predicted_peak_gib": predicted,
+            "measured_peak_gib": peak, "peak_ratio": predicted / peak,
+            "roofline_s": bound, "bound_by": by, "measured_s": secs,
+            "roofline_share": bound / secs,
+            "flops": r["hlo_corrected"]["per_device_flops"],
+            "bytes": r["hlo_corrected"]["per_device_bytes"]}
+        print(f"dryrun {name} ({arch}, {shape.global_batch} x "
+              f"{shape.seq_len}, world size 1): predicted peak "
+              f"{predicted:.2f} GiB beside the measured {peak:.2f} GiB "
+              f"({predicted / peak:.3f}); roofline {bound:.4f} s (bound by "
+              f"{by}) beside the measured {secs:.3f} s: "
+              f"{bound / secs:.4f} of it", flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"dryrun phase: {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 def prepare(seed: int):
     """Phases 1-2: the card's line, the build and its reports.  Returns
     (card line, device, rng); None without CUDA or the port's package."""
@@ -2707,6 +2792,7 @@ def main() -> int:
     lm_launches = {"ssd_scan": ssd_launches, **flash_phase(dev, rng)}
     trained = train_lm(dev, args.seed)
     distributed = distributed_phase(card, args.rows, args.seed)
+    dry = dryrun_phase(card, trained, moe)
     work = os.path.join(HERE, "build", "chip_smoke_wh")
     launches = {**main_path(args.rows, work, round_trip["split"]),
                 **lm_launches}
@@ -2740,6 +2826,7 @@ def main() -> int:
     print("train: " + json.dumps(trained), flush=True)
     print("moe: " + json.dumps(moe), flush=True)
     print("distributed: " + json.dumps(distributed), flush=True)
+    print("dryrun: " + json.dumps(dry), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

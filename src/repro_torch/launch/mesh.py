@@ -90,6 +90,11 @@ def dp_axes(mesh) -> Tuple[str, ...]:
 
 
 def shard_ctx(mesh):
+    """The models' ``ShardCtx`` on ``mesh``, with the port's DTensor
+    strategies registered."""
     from ..models.layers import ShardCtx
+    from .strategies import register
 
-    return ShardCtx(dp=dp_axes(mesh), tp="model", axis_sizes=axis_sizes(mesh))
+    register()
+    return ShardCtx(dp=dp_axes(mesh), tp="model", axis_sizes=axis_sizes(mesh),
+                    mesh=mesh)

@@ -6,14 +6,17 @@ does too.  Parameters live in small ``nn.Module``s whose parameter names are
 the JAX package's dictionary keys (``wq``, ``w_up``, ...); the functions take
 such a module where the JAX functions take a parameter dictionary.
 
-``ShardCtx`` carries a mesh's axes (``launch.mesh.shard_ctx``), but the
-port runs no model sharded yet: ``constrain`` returns its input, and the
-calls mark where the JAX package constrains.  The ``*_axes`` functions give
-each parameter's preferred mesh axes, as the JAX package declares them
+``ShardCtx`` carries a mesh (``launch.mesh.shard_ctx``).  Where the
+parameters and inputs are ``DTensor``s on it, ``constrain`` redistributes
+an activation to the spec the JAX package constrains it to at the same
+place (its ``with_sharding_constraint``); on plain tensors, or with no
+mesh, it returns its input.  The ``*_axes`` functions give each
+parameter's preferred mesh axes, as the JAX package declares them
 (``launch.sharding`` resolves them against a mesh).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -23,19 +26,138 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..launch.sharding import placements
+
+
+class _Redistribute(torch.autograd.Function):
+    """``x.redistribute(mesh, target)`` whose gradient comes back
+    contiguous (DTensor's redistributions can leave a strided local shard,
+    which the backward of a product's reshape cannot view) and, with
+    ``bind``, placed by ``target`` before it goes back to the input's
+    placements, as a sharding constraint binds the cotangent in XLA: else
+    DTensor leaves gradients where its backward ops happen to (the loss's
+    split over the sequence, say) and searches the whole mesh at each
+    product after."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, target, bind):
+        from torch.distributed.tensor import Replicate
+
+        # a partial sum's gradient is the whole gradient on every rank
+        source = tuple(Replicate() if p.is_partial() else p
+                       for p in x.placements)
+        ctx.mesh, ctx.hops = mesh, ((target,) if bind else ()) + (source,)
+        return x.redistribute(mesh, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        for placed in ctx.hops:
+            if tuple(g.placements) != placed:
+                g = g.redistribute(ctx.mesh, placed)
+        return g.contiguous(), None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """A mesh's data-parallel axes, tensor-parallel axis and axis sizes;
-    ``constrain`` is the identity (no model runs sharded yet)."""
+    """A mesh's data-parallel axes, tensor-parallel axis, axis sizes and
+    the ``DeviceMesh`` itself; with no mesh, ``constrain`` is the
+    identity."""
 
     dp: Tuple[str, ...] = ()  # data-parallel mesh axes ('pod','data') / ('data',)
     tp: Optional[str] = None  # tensor-parallel axis ('model')
     axis_sizes: Optional[Dict[str, int]] = None
+    mesh: Optional[object] = None  # a DeviceMesh
+
+    def _fits(self, dim: int, axes) -> bool:
+        if axes is None or self.axis_sizes is None:
+            return True
+        names = axes if isinstance(axes, tuple) else (axes,)
+        total = 1
+        for n in names:
+            total *= self.axis_sizes.get(n, 1)
+        return dim % total == 0
+
+    def _placed(self, x, spec: Tuple, bind: bool = True):
+        """x redistributed to ``spec``, an axis that does not divide its
+        dimension dropped (as the JAX package resolves it)."""
+        resolved = tuple(axes if axes and self._fits(dim, axes) else None
+                         for dim, axes in zip(x.shape, spec))
+        return self._to(x, placements(resolved, self.mesh), bind)
+
+    def _to(self, x, target: tuple, bind: bool):
+        if not torch.is_grad_enabled():
+            return x.redistribute(self.mesh, target)
+        return _Redistribute.apply(x, self.mesh, target, bind)
+
+    def _sharded(self, x) -> bool:
+        if self.mesh is None:
+            return False
+        from torch.distributed.tensor import DTensor
+
+        return isinstance(x, DTensor)
 
     def constrain(self, x: torch.Tensor, spec: Tuple) -> torch.Tensor:
-        return x
+        """x redistributed to ``spec`` where x is a DTensor on the mesh (an
+        axis that does not divide its dimension dropped, as the JAX
+        package resolves it), its gradient bound to ``spec`` too; else
+        x."""
+        return self._placed(x, spec) if self._sharded(x) else x
+
+    def heads(self, n: int) -> Tuple:
+        """The spec of a (B, S, n * head_dim) activation: the batch over the
+        data-parallel axes, the flat dim over ``tp`` only where the n heads
+        divide it (a reshape cannot cut a shard across heads; XLA gathers
+        there)."""
+        return (self.dp_spec, None, self.tp if self._fits(n, self.tp)
+                else None)
+
+    def gathered(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight with its split over the data-parallel axes gathered
+        (FSDP's all-gather before use, which XLA inserts): what stays split
+        is the tensor-parallel one.  Its gradient is reduce-scattered back.
+        Left to choose, DTensor would also split the activations' batch and
+        the weight's rows over the same axis and search placements through
+        the whole mesh for every product."""
+        if not self._sharded(w):
+            return w
+        from torch.distributed.tensor import Replicate
+
+        names = self.mesh.mesh_dim_names
+        target = tuple(Replicate() if names[i] in self.dp else pl
+                       for i, pl in enumerate(w.placements))
+        if target == tuple(w.placements):
+            return w
+        return self._to(w, target, bind=False)
+
+    def local(self, fn, specs: Tuple, *tensors):
+        """``fn(*tensors)``; where they are DTensors, on each rank's shards
+        of them, each first placed by its spec in ``specs`` (resolved on
+        its own shape), and fn's output, whose dims must follow the first
+        tensor's, placed like that one.  For work that is independent
+        across the split dims, such as attention across batch and heads,
+        which DTensor would otherwise gather to merge the two into one
+        batch dim, or the scan's loop over chunks, which it would run op by
+        op at a DTensor dispatch each."""
+        if not self._sharded(tensors[0]):
+            return fn(*tensors)
+        from torch.distributed.tensor import DTensor
+
+        placed = [self._placed(t, spec) for t, spec in zip(tensors, specs)]
+        return DTensor.from_local(fn(*(t.to_local() for t in placed)),
+                                  self.mesh, placed[0].placements,
+                                  run_check=False)
+
+    def replicating(self):
+        """A context in which plain tensors that meet DTensors (masks,
+        rope tables, positions, zeros the model builds) count as
+        replicated on the mesh; nothing without one.  The steps
+        (``train.steps``) enter it once around all their work, backward
+        passes included: it does not nest."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
 
     @property
     def dp_spec(self):
@@ -150,22 +272,38 @@ def attention_axes(cfg: ModelConfig):
     return a
 
 
+def _split_heads(t: torch.Tensor, heads: int, hd: int,
+                 ctx: ShardCtx) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd), the flat dim first placed
+    by ``ctx.heads``."""
+    B, S, _ = t.shape
+    return ctx.constrain(t, ctx.heads(heads)).reshape(B, S, heads, hd)
+
+
 def _qkv(p: Attention, x, cfg: ModelConfig, ctx: ShardCtx, positions):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p.wk).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p.wv).reshape(B, S, cfg.num_kv_heads, hd)
+    q = _split_heads(x @ ctx.gathered(p.wq), cfg.num_heads, hd, ctx)
+    k = _split_heads(x @ ctx.gathered(p.wk), cfg.num_kv_heads, hd, ctx)
+    v = _split_heads(x @ ctx.gathered(p.wv), cfg.num_kv_heads, hd, ctx)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    spec = (ctx.dp_spec, None, ctx.tp, None)
+    return (ctx.constrain(q, spec), ctx.constrain(k, spec),
+            ctx.constrain(v, spec))
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
-    return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=2)
+    """Each kv head n_rep times in a row along dim 2 (``repeat_interleave``
+    as a broadcast and a reshape, which DTensor keeps local where the heads
+    are split over the mesh)."""
+    if n_rep == 1:
+        return k
+    B, S, H, hd = k.shape
+    return k[:, :, :, None].expand(B, S, H, n_rep, hd).reshape(
+        B, S, H * n_rep, hd)
 
 
 # Attention implementation selector, as in the JAX package:
@@ -196,11 +334,20 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
     if _ATTENTION_IMPL == "online":
-        out = _attention_online(q, k, v, sliding_window, x.dtype)
+        def core(q, k, v):
+            return _attention_online(q, k, v, sliding_window, x.dtype)
     else:
-        out = _attention_blocked(q, k, v, sliding_window, x.dtype, q_block)
-    out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * hd)
-    return ctx.constrain(out @ p.wo, (ctx.dp_spec, None, None))
+        def core(q, k, v):
+            return _attention_blocked(q, k, v, sliding_window, x.dtype,
+                                      q_block)
+    spec = (ctx.dp_spec, ctx.tp, None, None)
+    out = ctx.local(core, (spec,) * 3, q, k, v)
+    # the heads' split (or none) carried to the flat dim, so that its
+    # gradient comes back split as a reshape into heads can follow
+    out = ctx.constrain(out.transpose(1, 2).reshape(
+        B, S, cfg.num_heads * hd), ctx.heads(cfg.num_heads))
+    return ctx.constrain(out @ ctx.gathered(p.wo),
+                         (ctx.dp_spec, None, None))
 
 
 def _mask(qpos, kpos, sliding_window):
@@ -266,7 +413,8 @@ def decode_attention(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                      sliding_window: Optional[int] = None):
     """One-token decode with a KV cache, x: (B, 1, D).  Writes the new key
     and value into the cache in place (the JAX package returns updated
-    copies); returns (out, cache_k, cache_v)."""
+    copies; on a mesh whose sharding the write cannot follow, into a
+    gathered copy); returns (out, cache_k, cache_v)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     S_max = cache_k.shape[1]
@@ -274,6 +422,12 @@ def decode_attention(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     q, k, v = _qkv(p, x, cfg, ctx, positions)
     ring = sliding_window is not None and S_max == sliding_window
     slot = pos % sliding_window if ring else pos
+    # on a mesh a sequence split over it (long_500k's batch of 1) is
+    # gathered first: the write at ``slot`` cannot follow a shard; else
+    # this is the cache itself and the writes land in place
+    spec = (ctx.dp_spec, None, ctx.tp, None)
+    cache_k = ctx.constrain(cache_k, spec)
+    cache_v = ctx.constrain(cache_v, spec)
     cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)
     cache_v[:, slot:slot + 1] = v.to(cache_v.dtype)
 
@@ -281,17 +435,20 @@ def decode_attention(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     kk = _repeat_kv(cache_k, n_rep)  # (B, S_max, Hq, hd)
     vv = _repeat_kv(cache_v, n_rep)
     scale = 1.0 / np.sqrt(hd)
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), kk.float()) * scale
     kpos = torch.arange(S_max, device=x.device)
     if ring:
         valid = (kpos <= min(pos, S_max - 1)) | (pos >= S_max)
     else:
         valid = kpos <= pos
-    scores = scores.masked_fill(~valid, -1e30)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", w, vv.float())
+
+    def core(q, kk, vv):
+        scores = torch.einsum("bqhd,bshd->bhqs", q.float(), kk.float()) * scale
+        w = torch.softmax(scores.masked_fill(~valid, -1e30), dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", w, vv.float())
+
+    out = ctx.local(core, (spec,) * 3, q, kk, vv)
     out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
-    return out @ p.wo, cache_k, cache_v
+    return out @ ctx.gathered(p.wo), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +495,8 @@ def _act(cfg: ModelConfig):
 def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
         ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     act = _act(cfg)
-    up = x @ p.w_up
-    h = act(x @ p.w_gate) * up if cfg.gated_mlp else act(up)
-    return ctx.constrain(h @ p.w_down, (ctx.dp_spec, None, None))
+    up = x @ ctx.gathered(p.w_up)
+    h = act(x @ ctx.gathered(p.w_gate)) * up if cfg.gated_mlp else act(up)
+    h = ctx.constrain(h, (ctx.dp_spec, None, ctx.tp))
+    return ctx.constrain(h @ ctx.gathered(p.w_down),
+                         (ctx.dp_spec, None, None))

@@ -186,15 +186,23 @@ def _causal_conv(xBC, w, b):
     return F.silu(out).transpose(1, 2)  # (B, S, C)
 
 
-def mamba2_scan_inputs(p: Mamba2, x, cfg: ModelConfig):
+def mamba2_scan_inputs(p: Mamba2, x, cfg: ModelConfig,
+                       ctx: ShardCtx = NOSHARD):
     """The prefill's projections up to the scan: (z, xs, x_scaled, dA, Bm,
-    Cm), the last four in float32 as the scan takes them."""
+    Cm), the last four in float32 as the scan takes them.  On a mesh the
+    projection's feature dim is gathered first: it is cut into z, xBC and
+    dt and reshaped into heads, which a shard cannot follow."""
     s = cfg.ssm
     d_inner, nheads, _, _ = _dims(cfg)
     B, S, _ = x.shape
-    zxbcdt = x @ p.in_proj
+    zxbcdt = ctx.constrain(x @ ctx.gathered(p.in_proj),
+                           (ctx.dp_spec, None, None))
     z, xBC, dt = _split_proj(zxbcdt, cfg)
-    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
+    # on each rank's batch: DTensor's convolution places its output by
+    # the input alone, whatever the weight's split, and takes no batch
+    # split over two mesh axes
+    xBC = ctx.local(_causal_conv, ((ctx.dp_spec, None, None), (None, None),
+                                   (None,)), xBC, p.conv_w, p.conv_b)
     xs = xBC[..., :d_inner].reshape(B, S, nheads, s.head_dim)
     Bm = xBC[..., d_inner: d_inner + s.d_state]
     Cm = xBC[..., d_inner + s.d_state:]
@@ -211,17 +219,28 @@ def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
     s = cfg.ssm
     d_inner = _dims(cfg)[0]
     B, S, _ = x.shape
-    z, xs, x_scaled, dA, Bm, Cm = mamba2_scan_inputs(p, x, cfg)
+    z, xs, x_scaled, dA, Bm, Cm = mamba2_scan_inputs(p, x, cfg, ctx)
     if use_kernel:
         from ..kernels.registry import resolve
 
         y, _ = resolve("ssd_scan")(x_scaled, dA, Bm, Cm, s.chunk)
     else:
-        y, _ = ssd_reference(x_scaled, dA, Bm, Cm, chunk=min(s.chunk, S))
+        # independent across batch and heads: on a mesh each rank scans
+        # its own shards
+        def scan(x_scaled, dA, Bm, Cm):
+            return ssd_reference(x_scaled, dA, Bm, Cm,
+                                 chunk=min(s.chunk, S))[0]
+        dp, tp = ctx.dp_spec, ctx.tp
+        y = ctx.local(scan, ((dp, None, tp, None), (dp, None, tp),
+                             (dp, None, None), (dp, None, None)),
+                      x_scaled, dA, Bm, Cm)
     y = y + xs.float() * p.D[None, None, :, None]
-    y = y.reshape(B, S, d_inner)
+    # the heads' split (or none) carried to the flat dim, so that its
+    # gradient comes back split as the reshape from heads can follow
+    y = ctx.constrain(y.reshape(B, S, d_inner), ctx.heads(_dims(cfg)[1]))
     y = rms_norm(y.to(x.dtype), p.norm) * F.silu(z.float()).to(x.dtype)
-    return ctx.constrain(y @ p.out_proj, (ctx.dp_spec, None, None))
+    return ctx.constrain(y @ ctx.gathered(p.out_proj),
+                         (ctx.dp_spec, None, None))
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, device=None,
@@ -243,13 +262,14 @@ def mamba2_decode(p: Mamba2, x, cache: Dict[str, torch.Tensor],
     s = cfg.ssm
     d_inner, nheads, conv_dim, _ = _dims(cfg)
     B = x.shape[0]
-    zxbcdt = (x @ p.in_proj)[:, 0]  # (B, d_in_proj)
+    zxbcdt = ctx.constrain(x @ ctx.gathered(p.in_proj),
+                           (ctx.dp_spec, None, None))[:, 0]
     z, xBC, dt = _split_proj(zxbcdt, cfg)
 
     conv = cache["conv"]
     window = torch.cat([conv, xBC.to(conv.dtype)[:, :, None]], dim=2)
     conv_out = torch.einsum("bck,ck->bc", window, p.conv_w) + p.conv_b
-    xBC_t = F.silu(conv_out)
+    xBC_t = ctx.constrain(F.silu(conv_out), (ctx.dp_spec, None))
     conv.copy_(window[:, :, 1:])
 
     xs = xBC_t[..., :d_inner].reshape(B, nheads, s.head_dim)
@@ -263,4 +283,4 @@ def mamba2_decode(p: Mamba2, x, cache: Dict[str, torch.Tensor],
     y = y.reshape(B, 1, d_inner)
     y = rms_norm(y.to(x.dtype), p.norm) * \
         F.silu(z.float())[:, None, :].to(x.dtype)
-    return y @ p.out_proj, cache
+    return y @ ctx.gathered(p.out_proj), cache

@@ -247,11 +247,14 @@ def cache_axes(cfg: ModelConfig, batch: int, dp_over_seq: bool) -> Dict:
 # ===========================================================================
 # forward (train / prefill)
 # ===========================================================================
-def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(model: LM, tokens: torch.Tensor,
+           ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     cfg = model.cfg
     if cfg.embedding_stub:
         return tokens.to(torch.bfloat16)
-    h = F.embedding(tokens, model.embed)
+    # on a mesh the table is gathered for the lookup: DTensor's lookup in a
+    # split vocab masks by the tokens' values, which the meta device lacks
+    h = F.embedding(tokens, ctx.constrain(model.embed, (None, None)))
     if cfg.scale_embeddings:
         h = h.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return h.to(torch.bfloat16)
@@ -277,12 +280,13 @@ def _apply_block(kind: str, bp: nn.Module, shared: Optional[AttnBlock], h,
     return _mlp_part(bp, h + a, cfg, ctx)
 
 
-def _logits(model: LM, h: torch.Tensor) -> torch.Tensor:
+def _logits(model: LM, h: torch.Tensor,
+            ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     cfg = model.cfg
     h = rms_norm(h, model.final_norm, plus_one=cfg.scale_embeddings)
     if cfg.tie_embeddings and not cfg.embedding_stub:
-        return h @ model.embed.T
-    return h @ model.lm_head
+        return h @ ctx.gathered(model.embed).T
+    return h @ ctx.gathered(model.lm_head)
 
 
 # Rematerialisation, as in the JAX package (its scan over periods unrolled):
@@ -317,7 +321,8 @@ def forward(model: LM, inputs: torch.Tensor, use_kernel: bool = True,
     run where autograd records: training passes ``use_kernel=False``).
     ``remat`` checkpoints the periods by the mode ``set_remat_mode`` set;
     the tail runs without.  zamba2's shared block gets the gradient of
-    every position it is applied at, summed."""
+    every position it is applied at, summed.  With DTensor parameters,
+    call it inside ``ctx.replicating()`` (the steps do)."""
     cfg = model.cfg
     period, periods = cfg.pattern_period, cfg.num_periods
 
@@ -327,22 +332,27 @@ def forward(model: LM, inputs: torch.Tensor, use_kernel: bool = True,
                              cfg, ctx, use_kernel)
         return h
 
+    def one_period(h, p: int):
+        h = layers(h, p * period, (p + 1) * period)
+        return ctx.constrain(h, (ctx.dp_spec, None, None))
+
     def periods_of(h, first: int, count: int):
         for p in range(first, first + count):
-            h = _checkpointed(layers, h, p * period, (p + 1) * period)
+            h = _checkpointed(one_period, h, p)
         return h
 
-    h = _embed(model, inputs)
+    h = ctx.constrain(_embed(model, inputs, ctx), (ctx.dp_spec, None, None))
     group = SQRT_GROUP
     if not remat:
-        h = layers(h, 0, periods * period)
+        for p in range(periods):
+            h = one_period(h, p)
     elif _REMAT_MODE == "sqrt" and periods % group == 0 and periods > group:
         for g in range(0, periods, group):
             h = _checkpointed(periods_of, h, g, group)
     else:
         h = periods_of(h, 0, periods)
     h = layers(h, periods * period, len(model.layers))
-    return ctx.constrain(_logits(model, h), (ctx.dp_spec, None, ctx.tp))
+    return ctx.constrain(_logits(model, h, ctx), (ctx.dp_spec, None, ctx.tp))
 
 
 # ===========================================================================
@@ -381,7 +391,7 @@ def _decode_block(kind: str, bp: nn.Module, shared: Optional[AttnBlock], h,
     if kind == "shared_attn":
         bp = shared
     window = cfg.sliding_window if kind == "local" else None
-    a, _, _ = decode_attention(
+    a, cache["k"], cache["v"] = decode_attention(
         bp.attn, rms_norm(h, bp.ln1, plus_one=cfg.scale_embeddings),
         cache["k"], cache["v"], pos, cfg, ctx, sliding_window=window)
     return _mlp_part(bp, h + a, cfg, ctx)
@@ -397,7 +407,7 @@ def decode_step(model: LM, cache: List[Dict[str, torch.Tensor]],
     returns a new one) and returns (logits (B, V), cache)."""
     cfg = model.cfg
     pos = int(pos)
-    h = _embed(model, inputs if cfg.embedding_stub else inputs[:, None])
+    h = _embed(model, inputs if cfg.embedding_stub else inputs[:, None], ctx)
     for kind, bp, cs in zip(model.kinds, model.layers, cache):
         h = _decode_block(kind, bp, model.shared, h, cs, pos, cfg, ctx)
-    return _logits(model, h)[:, 0], cache
+    return _logits(model, h, ctx)[:, 0], cache

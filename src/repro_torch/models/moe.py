@@ -118,7 +118,15 @@ def slot_positions(topi: torch.Tensor, num_experts: int) -> torch.Tensor:
     """Each (token, slot)'s position among the earlier slots (token-major)
     of its expert, for topi (T, k).  A stable sort by expert keeps
     token-major order within each expert: the same numbers as the JAX
-    package's cumulative sum over a one-hot, with no host sync."""
+    package's cumulative sum over a one-hot, with no host sync.  A DTensor
+    ``topi`` is whole on every rank (``moe_ffn`` gathers the routing's
+    input), so each rank counts on its own copy."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(topi, DTensor):
+        return DTensor.from_local(
+            slot_positions(topi.to_local(), num_experts), topi.device_mesh,
+            topi.placements, run_check=False)
     flat = topi.reshape(-1)
     experts, order = torch.sort(flat, stable=True)
     starts = torch.searchsorted(
@@ -158,6 +166,9 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     m = cfg.moe
     B, S, D = x.shape
     T, k, E = B * S, m.top_k, m.num_experts
+    # on a mesh the routing is global (a slot's place in its expert's
+    # buffer counts the earlier slots of every rank's tokens): gather them
+    x = ctx.constrain(x, (None, None, None))
     r = route(p, x, cfg)
     C = r.C
     xf = x.reshape(T, D)
@@ -166,12 +177,21 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     dispatch = xf.new_zeros(E * C + 1, D)
     for j in range(k):
         dispatch.index_copy_(0, row[:, j], xf)
-    dispatch = dispatch[:E * C].view(E, C, D)
+    # experts over 'model' where there are 16 or more (the JAX package's
+    # rule), else the capacity and feature dims, so that the (E, C, D)
+    # buffer is never replicated
+    if _experts_shardable(cfg):
+        disp_spec = h_spec = (ctx.tp, ctx.dp_spec, None)
+    else:
+        disp_spec = h_spec = (None, ctx.dp_spec, ctx.tp)
+    dispatch = ctx.constrain(dispatch[:E * C].view(E, C, D), disp_spec)
     act = _expert_act(cfg)
-    h = act(torch.bmm(dispatch, p.w_gate))
-    h = h * torch.bmm(dispatch, p.w_up)
+    h = act(torch.bmm(dispatch, ctx.gathered(p.w_gate)))
+    h = ctx.constrain(h * torch.bmm(dispatch, ctx.gathered(p.w_up)), h_spec)
     del dispatch
-    out = torch.bmm(h, p.w_down).view(E * C, D)
+    out = ctx.constrain(torch.bmm(h, ctx.gathered(p.w_down)), disp_spec)
+    # the combine reads any expert's rows: the buffer whole on each rank
+    out = ctx.constrain(out, (None, None, None)).view(E * C, D)
     del h
 
     gates = r.gates.to(x.dtype)

@@ -34,7 +34,7 @@ def adamw_init(params: Union[nn.Module, Mapping]) -> AdamWState:
     named = (dict(params.named_parameters()) if isinstance(params, nn.Module)
              else dict(params))
     device = next(iter(named.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in named.items()}
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
                       zeros, {k: torch.zeros_like(z) for k, z in zeros.items()})

@@ -22,12 +22,38 @@ from .optimizer import AdamWState, adamw_update
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """Mean token cross-entropy; logits (B,S,V) any float dtype, labels
     (B,S)."""
+    from torch.distributed.tensor import DTensor
+
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        return _xent_vocab_parallel(logits, labels, ctx)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _xent_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor,
+                         ctx: ShardCtx) -> torch.Tensor:
+    """``softmax_xent`` of DTensor logits whose vocab dim may be split over
+    the mesh, as vocab-parallel cross-entropy computes it: each rank reduces
+    its own columns and only (B, S) values cross the mesh (DTensor would
+    gather the whole logits for ``logsumexp``, and its sharded ``gather``
+    masks by the labels' values, which the meta device does not hold).
+    The log-sum-exp is logsumexp's own: the max, then the log of the sum of
+    exp(x - max); the label's logit is picked by a mask.  The (B, S)
+    results are placed by the batch alone, which keeps DTensor from
+    splitting the sequence (and so the logits' gradient) over the mesh."""
+    spec = (ctx.dp_spec, None)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    logz = ctx.constrain(torch.log(torch.exp(logits - m).sum(dim=-1))
+                         + m[..., 0], spec)
+    vocab = torch.arange(logits.shape[-1], device=labels.device)
+    gold = ctx.constrain(torch.where(vocab == labels[..., None], logits,
+                                     0.0).sum(dim=-1), spec)
     return (logz - gold).mean()
 
 
@@ -55,12 +81,16 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
         with torch.enable_grad():
             logits = M.forward(model, inputs, use_kernel=False, ctx=ctx,
                                remat=remat)
-            loss = softmax_xent(logits, labels)
+            loss = softmax_xent(logits, labels, ctx)
             grads = torch.autograd.grad(loss, params, allow_unused=True,
                                         materialize_grads=True)
         return loss.detach(), grads
 
     def train_step(model, opt_state: AdamWState, batch: Dict):
+        with ctx.replicating():
+            return _train_step(model, opt_state, batch)
+
+    def _train_step(model, opt_state: AdamWState, batch: Dict):
         names, params = zip(*model.named_parameters())
         inputs, labels = batch["inputs"], batch["labels"]
         if microbatches > 1:
@@ -69,8 +99,7 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             mb = B // microbatches
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in params]
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             lsum = 0.0
             for i in range(microbatches):
                 part = slice(i * mb, (i + 1) * mb)
@@ -95,14 +124,23 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
 # ---------------------------------------------------------------------------
 # serve (decode) and prefill
 # ---------------------------------------------------------------------------
+def _greedy(logits: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The argmax over the vocab of (B, V) logits, int32; on a mesh the
+    vocab is gathered first (DTensor's split argmax fails on a batch split
+    over two mesh axes)."""
+    logits = ctx.constrain(logits, (ctx.dp_spec, None))
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
 def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD):
     """serve_step(model, cache, inputs, pos) -> (next_token, cache): one new
     token per sequence against the cache, greedy."""
 
     @torch.inference_mode()
     def serve_step(model, cache, inputs, pos):
-        logits, cache = M.decode_step(model, cache, inputs, pos, ctx)
-        return logits.argmax(dim=-1).to(torch.int32), cache
+        with ctx.replicating():
+            logits, cache = M.decode_step(model, cache, inputs, pos, ctx)
+            return _greedy(logits, ctx), cache
 
     return serve_step
 
@@ -114,8 +152,9 @@ def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NOSHARD,
 
     @torch.inference_mode()
     def prefill_step(model, inputs):
-        logits = M.forward(model, inputs, use_kernel=use_kernel, ctx=ctx)
-        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+        with ctx.replicating():
+            logits = M.forward(model, inputs, use_kernel=use_kernel, ctx=ctx)
+            return _greedy(logits[:, -1], ctx)
 
     return prefill_step
 

@@ -1164,3 +1164,28 @@ def test_cuda_distributed_operators_over_nccl(cuda, tmp_path):
             assert float((g - p).abs().max() / p.abs().max()) < 0.02
     finally:
         dist.destroy_process_group()
+
+
+def test_cuda_dryrun_cell_on_a_cuda_mesh(cuda, tmp_path):
+    """launch/dryrun.py's default device: the debug-mesh cell on a cuda
+    mesh of the fake process group (torch's own version on the card, whose
+    DTensor lacks strategies the CPU's has: launch/strategies.py) counts
+    the FLOPs, arguments and parameter bytes the same cell counts on a cpu
+    mesh, and allocates nothing.  Its collectives (and the temporaries
+    they make) may differ: DTensor picks them by the mesh's device (on a
+    cpu mesh an all-to-all is an all-gather)."""
+    from repro_torch.launch import dryrun
+
+    before = torch.cuda.memory_allocated()
+    got, exp = (dryrun.run_cell("qwen3-14b", "decode_32k", False, True,
+                                out_dir=str(tmp_path / str(dev)), device=dev)
+                for dev in (None, "cpu"))
+    assert got["device"] == "cuda" and exp["device"] == "cpu"
+    assert torch.cuda.memory_allocated() == before
+    assert got["param_bytes_per_device"] == exp["param_bytes_per_device"]
+    for key in ("argument_size_in_bytes", "output_size_in_bytes",
+                "alias_size_in_bytes"):
+        assert got["memory_analysis"][key] == exp["memory_analysis"][key]
+    assert got["hlo_corrected"]["per_device_flops"] == \
+        exp["hlo_corrected"]["per_device_flops"]
+    assert got["collectives"]["op_count"] > 0

@@ -95,12 +95,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      path's and hash_group's morsel path's) must have risen.  Then the first
      slice's configuration (no semijoin reduction, one lane) runs as an
      earlier path over EARLIER_QUERIES on the same warehouse, and its four
-     kernels' counters must have risen;
+     kernels' counters must have risen.  Then the warehouse's four axes
+     (``surface_phase``) on the same warehouse: each step of
+     repro_torch/workloads/surface.py under ``engine: cuda``, every result
+     held to ``engine: auto``'s on the same state (run_path's rounding):
+     8 dashboard clients on threads behind a two-pool resource plan, the
+     result cache's hit on a repeat; a memtable catalog and a JDBC table
+     joined to lineorder; a materialized view taken for flight 1; UPDATE,
+     DELETE and INSERT on lineorder with a handle reading its older
+     snapshot, the view skipped while stale and taken after REBUILD, and a
+     major compaction; each step's SQL kernel counters that rose printed
+     (at least one per step; key_lookup and hash_group in the federation
+     step, hash_group in the view's); then the port's two examples once
+     under ``engine: cuda`` (``surface: {...}`` before the card line);
   6. print the launches by route and path, the ``kernels`` JSON line (all
      eight kernels), the training phase's numbers (``train: {...}``), the
      MoE phase's (``moe: {...}``), the distributed phase's
-     (``distributed: {...}``), the dry run's (``dryrun: {...}``), the card
-     line, and last ``{"ok": true,
+     (``distributed: {...}``), the dry run's (``dryrun: {...}``), the four
+     axes' (``surface: {...}``), the card line, and last ``{"ok": true,
      "device": {...}}``.
 
 ``python3 -c 'import chip_smoke; chip_smoke.sql_kernels()'`` runs phases
@@ -1276,23 +1288,10 @@ def rows_of(cur):
 
 
 def same_rows(got, exp) -> bool:
-    if len(got) != len(exp):
-        return False
-    key = lambda r: tuple(str(v) if isinstance(v, str) else  # noqa: E731
-                          (round(v, 4) if isinstance(v, float) else v)
-                          for v in r)
-    for g, e in zip(sorted(got, key=key), sorted(exp, key=key)):
-        for gv, ev in zip(g, e):
-            if gv is None or ev is None:
-                if not (gv is None and ev is None):
-                    return False
-            elif isinstance(ev, float) or isinstance(gv, float):
-                if not ((math.isnan(gv) and math.isnan(ev))
-                        or np.allclose(gv, ev)):
-                    return False
-            elif gv != ev:
-                return False
-    return True
+    """Equal rows in any order, floats within np.allclose's defaults."""
+    from repro_torch.workloads.surface import same_rows as rule
+
+    return rule(got, exp)
 
 
 def llap_line(wh, since: dict) -> str:
@@ -1322,10 +1321,11 @@ def read_every_stripe(wh, table: str) -> int:
 
 
 def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
-             title: str) -> dict:
+             title: str, auto_rows: dict = None) -> dict:
     """Each query under cuda, then under auto (same scan-cache state), on
     one warehouse; launch counts go to 0 just before and are read just
-    after.  Returns the counts."""
+    after.  Returns the counts; ``auto_rows`` (where given) gets each
+    statement's rows under auto."""
     from repro_torch.kernels import registry
 
     print(title, flush=True)
@@ -1349,6 +1349,8 @@ def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
             t0 = time.perf_counter()
             exp = rows_of(auto.execute(sql))
             ma = (time.perf_counter() - t0) * 1e3
+            if auto_rows is not None:
+                auto_rows[sql] = exp
             assert same_rows(got, exp), f"{name}: cuda rows != auto rows"
             total_c, total_a = total_c + mc, total_a + ma
             counts = " ".join(str(after.get(k, 0) - before.get(k, 0))
@@ -1375,7 +1377,135 @@ def run_path(db, wh, cfg: dict, queries: dict, kernels: tuple,
     return launches
 
 
-def main_path(rows: int, work_dir: str, isolated: dict) -> dict:
+# ---------------------------------------------------------------------------
+# phase 5b: the warehouse's four axes on the same warehouse
+# ---------------------------------------------------------------------------
+# the runtime step's load, cut from repro_torch/workloads/surface.py's 16
+# clients sending all six of flights 1-2 to 8 clients sending one each: the
+# queries share one interpreter and run one at a time, so on the H100's
+# host 16 x 2 took 149 s (71 s a query at the median) and 16 x 1 55-75 s,
+# and the whole script must stay well inside its time limit
+SURFACE_CLIENTS = 8
+SURFACE_PER_CLIENT = 1
+# the snapshot handle's wait before it reads: longer than the UPDATE takes
+# at SF1 on the H100's host (22.7 s; the three writes 41.2 s), so it reads
+# after the UPDATE commits
+SURFACE_SNAPSHOT_DELAY_S = 45.0
+# kernels a step must launch, beyond one of the six at least: the joins to
+# the federated dimensions and its grouped count; the view's COUNT
+SURFACE_KERNELS = {"federation": ("key_lookup", "hash_group"),
+                   "mv": ("hash_group",)}
+SURFACE_EXAMPLES = ("quickstart", "federated_warehouse")
+
+
+def surface_phase(db, wh, cfg: dict, work_dir: str,
+                  known: dict = None) -> dict:
+    """Each step of workloads/surface.py under ``engine: cuda`` on ``wh``,
+    every result held to ``engine: auto``'s on the same state (``known``:
+    statements' rows under auto that an earlier path computed on this
+    state), each step's SQL kernel launches counted from 0; then the port's
+    examples once under ``cuda``.  Each statement's seconds are printed as
+    it ends.  Returns the phase's report."""
+    import contextlib
+    import importlib
+    import io
+    import logging
+
+    from repro_torch.kernels import registry
+    from repro_torch.workloads import surface
+
+    t0 = time.perf_counter()
+    report = {"steps": {}}
+    log = logging.getLogger(surface.__name__)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    printer = logging.StreamHandler(sys.stdout)
+    printer.setFormatter(logging.Formatter("  surface: %(message)s"))
+    log.addHandler(printer)
+    for name, step in surface.STEPS:
+        held = []
+
+        def same(got, exp):
+            held.append(surface.same_rows(got, exp))
+            return held[-1]
+
+        opts = ({"snapshot_delay_s": SURFACE_SNAPSHOT_DELAY_S}
+                if name == "writes" else {"known": known})
+        if name == "runtime":
+            opts.update(clients=SURFACE_CLIENTS,
+                        per_client=SURFACE_PER_CLIENT)
+        registry.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = step(db, wh, "cuda", cfg, against="auto", same=same, **opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = registry.launch_counts()
+        rose = {k: launches[k] for k in PATH_KERNELS if launches.get(k)}
+        print(f"surface {name}: {secs:.1f} s; {len(held)} results held to "
+              f"auto's; launches {rose}; info {json.dumps(out['info'])}; "
+              f"measured {json.dumps(out['measured'])}", flush=True)
+        assert held and all(held), (name, held)
+        assert rose, f"surface {name}: no SQL kernel launched"
+        for k in SURFACE_KERNELS.get(name, ()):
+            assert launches.get(k, 0) > 0, \
+                f"surface {name}: {k} never launched"
+        report["steps"][name] = {"s": secs, "rows_equal": all(held),
+                                 "checks": len(held), "launches": rose,
+                                 "info": out["info"],
+                                 "measured": out["measured"]}
+    log.removeHandler(printer)
+    for name in SURFACE_EXAMPLES:
+        example = importlib.import_module(f"repro_torch.examples.{name}")
+        printed = io.StringIO()
+        registry.reset_launch_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            example.main("cuda", warehouse_dir=os.path.join(work_dir, name))
+        torch.cuda.synchronize()
+        launches = registry.launch_counts()
+        rose = {k: launches[k] for k in PATH_KERNELS if launches.get(k)}
+        lines = printed.getvalue().count("\n")
+        secs = time.perf_counter() - t1
+        # the federated example's statements are pushed to Druid and sqlite
+        # or join on strings: it may launch none of the six
+        print(f"surface example {name}: {secs:.1f} s under cuda, {lines} "
+              f"lines printed; launches {rose}", flush=True)
+        report[name] = {"s": secs, "lines": lines, "launches": rose}
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"surface phase: {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
+def surface_summary(report: dict) -> dict:
+    """The ``surface: {...}`` line: per-step seconds, rows-equal flags and
+    counters that rose, the view's use around the writes, the cache hit,
+    the clients' latency and queue depth, and the delta directories."""
+    steps = report["steps"]
+    mv, writes = steps["mv"]["info"], steps["writes"]["info"]
+    runtime = steps["runtime"]["measured"]
+    return {
+        "phase_s": report["phase_s"],
+        "step_s": {k: v["s"] for k, v in steps.items()},
+        "rows_equal": {k: v["rows_equal"] for k, v in steps.items()},
+        "checks": {k: v["checks"] for k, v in steps.items()},
+        "launches": {k: v["launches"] for k, v in steps.items()},
+        "mv_used": {"built": mv["q1.1"]["mv_used"],
+                    "stale": writes["stale_mv_used"],
+                    "rebuilt": writes["q1.1_mv_used"],
+                    "rebuild_mode": writes["rebuild_mode"]},
+        "cache_hit": steps["runtime"]["info"]["cache_hit"],
+        "clients": {k: runtime[k] for k in (
+            "clients", "per_client", "queries", "wall_s", "p50_ms",
+            "p95_ms", "max_queue_depth")},
+        "rowcount": writes["rowcount"],
+        "snapshot_running_after":
+            steps["writes"]["measured"]["snapshot_running_after"],
+        "delta_dirs": writes["delta_dirs"],
+        "examples": {k: report[k] for k in SURFACE_EXAMPLES},
+    }
+
+
+def main_path(rows: int, work_dir: str, isolated: dict) -> tuple:
     import repro_torch.api as db
     from repro_torch.core.session import Warehouse
     from repro_torch.workloads.ssb import (KERNEL_QUERIES, SSB_QUERIES,
@@ -1408,10 +1538,11 @@ def main_path(rows: int, work_dir: str, isolated: dict) -> dict:
         print(f"cold scan of every lineorder column: "
               f"{time.perf_counter() - t0:.1f} s; {llap_line(wh, llap0)}",
               flush=True)
+        auto_rows = {}
         launches = run_path(
             db, wh, {**CONFIG, "exchange.spill_dir": spill}, queries,
             PATH_KERNELS, f"main path: default SQL configuration {CONFIG}, "
-            f"{len(queries)} queries, lineorder {rows} rows")
+            f"{len(queries)} queries, lineorder {rows} rows", auto_rows)
         # the executor's 1,024-row morsels take the one-launch paths
         assert launches.get("hash_group_minmax.one_block", 0) > 0, launches
         assert launches.get("hash_group.morsel", 0) > 0, launches
@@ -1424,7 +1555,10 @@ def main_path(rows: int, work_dir: str, isolated: dict) -> dict:
             f"depth {len(EARLIER_QUERIES)} of {len(queries)} queries "
             f"{list(EARLIER_QUERIES)}, "
             f"lineorder {rows} rows")
-        return launches
+        surface = surface_phase(
+            db, wh, {**CONFIG, "exchange.spill_dir": spill}, work_dir,
+            known=auto_rows)
+        return launches, surface
     finally:
         wh.close()
         shutil.rmtree(work_dir, ignore_errors=True)
@@ -2774,6 +2908,36 @@ def sql_kernels(seed: int = 0) -> int:
     return 0
 
 
+def surface_alone(rows: int = 6_000_000, seed: int = 0) -> int:
+    """Phases 1-2, then SSB loaded and the four axes' phase alone, with no
+    result line: the quick call after a change to the phase or to the host
+    paths it drives."""
+    ready = prepare(seed)
+    if ready is None:
+        return 2
+    import repro_torch.api as db
+    from repro_torch.core.session import Warehouse
+    from repro_torch.workloads.ssb import load_ssb
+
+    work = os.path.join(HERE, "build", "chip_smoke_surface")
+    shutil.rmtree(work, ignore_errors=True)
+    wh = Warehouse(os.path.join(work, "wh"))
+    try:
+        t0 = time.perf_counter()
+        load_ssb(wh, scale_rows=rows)
+        print(f"load_ssb rows={rows}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        report = surface_phase(
+            db, wh, {**CONFIG, "exchange.spill_dir": os.path.join(
+                work, "spill")}, work)
+    finally:
+        wh.close()
+        shutil.rmtree(work, ignore_errors=True)
+    print("surface: " + json.dumps(surface_summary(report)), flush=True)
+    print(ready[0], flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=6_000_000,
@@ -2794,8 +2958,8 @@ def main() -> int:
     distributed = distributed_phase(card, args.rows, args.seed)
     dry = dryrun_phase(card, trained, moe)
     work = os.path.join(HERE, "build", "chip_smoke_wh")
-    launches = {**main_path(args.rows, work, round_trip["split"]),
-                **lm_launches}
+    sql_launches, surface = main_path(args.rows, work, round_trip["split"])
+    launches = {**sql_launches, **lm_launches}
 
     print("launches by route and path: " + json.dumps(
         {r: launches.get(r, 0) for r in ROUTES}), flush=True)
@@ -2827,6 +2991,7 @@ def main() -> int:
     print("moe: " + json.dumps(moe), flush=True)
     print("distributed: " + json.dumps(distributed), flush=True)
     print("dryrun: " + json.dumps(dry), flush=True)
+    print("surface: " + json.dumps(surface_summary(surface)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...kernels.bloom.ops import probe_bloom_filter
-from ...kernels.registry import engine_device, host_call, resolve, upload
+from ...kernels import registry
+from ...kernels.registry import engine_device, host_call, upload
 from ..acid import AcidTable
 from ..bloomfilter import BloomFilter
 from ..metastore import Metastore, Snapshot, WriteIdList
@@ -89,7 +90,9 @@ class ExecContext:
         numpy-in/numpy-out call on the query's device."""
         if self.trace is not None:
             self.trace.kernel_dispatch(name, self.engine)
-        return host_call(resolve(name, self.engine), self.device)
+        # looked up at call time, as the JAX package's executor does, so a
+        # spy on ``registry.resolve`` sees every dispatch
+        return host_call(registry.resolve(name, self.engine), self.device)
 
 
 # ===========================================================================

@@ -1189,3 +1189,33 @@ def test_cuda_dryrun_cell_on_a_cuda_mesh(cuda, tmp_path):
     assert got["hlo_corrected"]["per_device_flops"] == \
         exp["hlo_corrected"]["per_device_flops"]
     assert got["collectives"]["op_count"] > 0
+
+
+def test_cuda_surface_small(cuda, tmp_path):
+    """The four-axes scenario (workloads/surface.py) at 60,000 lineorder
+    rows under cuda, every result held to auto's on the same state (rows
+    in any order, floats within np.allclose's defaults); each step's SQL
+    kernel launches rise from 0, the federated joins and grouped count
+    reaching key_lookup and hash_group, the view's build hash_group."""
+    import repro_torch.api as db
+    from repro_torch.core.session import Warehouse
+    from repro_torch.workloads import surface
+    from repro_torch.workloads.ssb import load_ssb
+
+    kernels = ("filter_eval", "key_lookup", "hash_group",
+               "hash_group_minmax", "hash_partition", "bloom_probe")
+    must = {"federation": ("key_lookup", "hash_group"),
+            "mv": ("hash_group",)}
+    wh = Warehouse(str(tmp_path / "wh"))
+    try:
+        load_ssb(wh, scale_rows=60_000, seed=42)
+        cfg = {"result_cache": False, "shuffle.partitions": 4}
+        for name, step in surface.STEPS:
+            registry.reset_launch_counts()
+            step(db, wh, "cuda", cfg, against="auto")
+            launches = registry.launch_counts()
+            assert any(launches.get(k, 0) for k in kernels), (name, launches)
+            for k in must.get(name, ()):
+                assert launches.get(k, 0) > 0, (name, k, launches)
+    finally:
+        wh.close()

@@ -201,3 +201,19 @@ def test_compaction_and_recreate_serve_fresh_bytes(tmp_path):
         conn.execute("CREATE TABLE c (x INT)")
         conn.execute("INSERT INTO c VALUES (100)")
         assert conn.execute("SELECT SUM(x) FROM c").fetchall() == [(100,)]
+
+
+def test_tombstone_probe_equals_isin():
+    """The merge-on-read anti-join probes the scan's sorted tombstones by
+    binary search (``acid._in_sorted``): the same mask as ``np.isin``, keys
+    below, between and above the tombstones included."""
+    from repro_torch.core.acid import _in_sorted
+
+    rng = np.random.default_rng(5)
+    for n_tombs in (1, 7, 5000):
+        tombs = np.unique(rng.integers(-1000, 1 << 40, n_tombs))
+        keys = np.concatenate([rng.choice(tombs, 300),
+                               rng.integers(-2000, (1 << 40) + 10, 3000),
+                               [tombs[0] - 1, tombs[-1] + 1, tombs[-1]]])
+        assert np.array_equal(_in_sorted(keys, tombs), np.isin(keys, tombs))
+    assert _in_sorted(np.empty(0, np.int64), np.array([3])).size == 0

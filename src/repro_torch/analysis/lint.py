@@ -35,7 +35,8 @@ REP006  streaming operators (generator functions) must derive output
         (ACID bookkeeping, dummy evaluation rows) are exempt.
 REP007  traced subsystems (``core/runtime``, ``core/serving``,
         ``core/federation``) must not read ``time.monotonic()`` /
-        ``time.perf_counter()`` directly — timing goes through
+        ``time.perf_counter()``, nor the CPU clocks ``time.thread_time()``
+        / ``time.process_time()``, directly — timing goes through
         ``repro_torch.core.obs.clock`` (or a trace span), so every duration a
         trace, metric, or EXPLAIN ANALYZE reports comes off one clock.
         Raw reads drift out of trace timelines silently (the tracer
@@ -102,8 +103,10 @@ COLLECT_ALLOWLIST: Set[Tuple[str, str]] = {
     ("exec.py", "_stream_windowop"),
 }
 
-# raw time.* attributes REP007 polices in traced subsystems
-_RAW_CLOCK_ATTRS = {"monotonic", "perf_counter"}
+# raw time.* attributes REP007 polices in traced subsystems (the CPU
+# clocks too: a span's cpu_ms comes off obs.clock.thread_time)
+_RAW_CLOCK_ATTRS = {"monotonic", "perf_counter", "thread_time",
+                    "process_time"}
 
 # REP007 subtree gate: which path segments put a file in a traced subsystem
 _REP007_SUBSYSTEMS = {"runtime", "serving", "federation"}
@@ -282,7 +285,7 @@ class _Checker(ast.NodeVisitor):
             if attr is not None:
                 self._check_dag_mutation(node, attr,
                                          f".{node.func.attr}()")
-        # REP007: raw time.monotonic()/time.perf_counter() in a traced
+        # REP007: a raw time.* clock read (wall or CPU) in a traced
         # subsystem — timing there must come off the obs clock
         if (self.check_clock
                 and isinstance(node.func, ast.Attribute)

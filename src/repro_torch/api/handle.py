@@ -70,8 +70,13 @@ class QueryHandle:
     def trace(self) -> dict:
         """This query's Chrome trace-event JSON (paper-style EXPLAIN
         ANALYZE's raw material): pipeline-stage spans, WLM admission wait,
-        per-vertex compute/exchange-wait/spill-I/O tracks, shuffle lanes,
-        and serving/adaptive instant events.  Requires ``obs.tracing``
+        the result cache's pending wait, per-vertex tracks (compute /
+        exchange-wait / spill-I/O totals as arguments), each exchange wait
+        and spill, join and runtime-filter probes and kernel calls on the
+        threads that ran them (each live span with its ``cpu_ms``),
+        shuffle lanes, and serving/adaptive instant events;
+        ``otherData["t0_s"]`` is the obs clock's seconds at ``ts`` 0.
+        Requires ``obs.tracing``
         (or ``REPRO_OBS_TRACING=1``) to have been on when the query was
         submitted; dump to a file and open in Perfetto, or use
         ``Connection.export_trace(handle.query_id, path)``."""

@@ -140,9 +140,11 @@ _KEYS = (
     # ------------------------------------------------- observability (PR 10)
     _k("obs.tracing", False, bool,
        doc="per-query structured tracing: spans for every pipeline stage, "
-           "WLM admission wait, DAG vertex (compute vs exchange-wait vs "
-           "spill-I/O), shuffle lane, federated split read, kernel "
-           "dispatch, serving and adaptive event; export Chrome trace "
+           "WLM admission wait, result-cache pending wait, DAG vertex "
+           "(compute vs exchange-wait vs spill-I/O), exchange wait, spill, "
+           "join and runtime-filter probe, kernel call, shuffle lane, "
+           "federated split read, serving and adaptive event, each live "
+           "span with its thread's CPU time; export Chrome trace "
            "JSON via QueryHandle.trace() / Connection.export_trace(). "
            "Off by default — hot paths then pay one attribute test and "
            "allocate no span objects (also enabled process-wide by the "

@@ -4,12 +4,15 @@ Three coupled pieces, shared by every telemetry surface:
 
   * :mod:`.trace` — structured per-query tracing: a :class:`QueryTrace`
     of nested spans and point events (pipeline stages, WLM admission
-    wait, DAG vertices split into compute / exchange-wait / spill-I/O,
-    shuffle lanes, federated split reads, kernel dispatches, serving and
-    adaptive events), exportable as Chrome trace-event JSON for
+    wait, the result cache's pending wait, DAG vertices split into
+    compute / exchange-wait / spill-I/O, each exchange wait and spill,
+    join and runtime-filter probes, kernel calls, shuffle lanes,
+    federated split reads, serving and adaptive events), each live span
+    with its thread's CPU time, exportable as Chrome trace-event JSON for
     Perfetto.  ``make_span`` / ``emit_event`` follow the lockdep factory
     pattern: plain no-op singletons when ``obs.tracing`` is off, one
-    attribute test on the hot path.
+    attribute test on the hot path; ``current_trace`` is the trace of the
+    query a thread works for.
   * :mod:`.metrics` — the warehouse :class:`MetricsRegistry` (counters /
     gauges / bucketed histograms); ``poll()``, ``server_stats()`` and the
     WLM/serving/shuffle counters keep their dict shapes but derive from
@@ -32,15 +35,16 @@ from ...analysis.lockdep import make_lock
 from . import clock
 from .metrics import DEFAULT_BUCKETS_MS, Counter, Histogram, MetricsRegistry
 from .query_log import QueryLog
-from .trace import (NOOP_SPAN, QueryTrace, close_vertex_frame, emit_event,
-                    make_span, note_exchange_wait, note_spill_io,
-                    open_vertex_frame, tracing_enabled)
+from .trace import (NOOP_SPAN, QueryTrace, bind_trace, close_vertex_frame,
+                    current_trace, emit_event, make_span, open_vertex_frame,
+                    restore_trace, tracing_enabled, vertex_phase)
 
 __all__ = [
     "DEFAULT_BUCKETS_MS", "Counter", "Histogram", "MetricsRegistry",
-    "NOOP_SPAN", "QueryLog", "QueryTrace", "WarehouseObs", "clock",
-    "close_vertex_frame", "emit_event", "make_span", "note_exchange_wait",
-    "note_spill_io", "open_vertex_frame", "tracing_enabled",
+    "NOOP_SPAN", "QueryLog", "QueryTrace", "WarehouseObs", "bind_trace",
+    "clock", "close_vertex_frame", "current_trace", "emit_event",
+    "make_span", "open_vertex_frame", "restore_trace", "tracing_enabled",
+    "vertex_phase",
 ]
 
 

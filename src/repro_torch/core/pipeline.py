@@ -33,7 +33,9 @@ from .optimizer.semijoin import SemijoinConfig, insert_semijoin_reducers
 from .optimizer.shared_work import find_shared_subplans
 from ..analysis.lockdep import make_lock
 from ..analysis.plan_validator import maybe_validate_dag
-from .obs.trace import QueryTrace, emit_event, make_span, tracing_enabled
+from .obs import clock
+from .obs.trace import (QueryTrace, bind_trace, emit_event, make_span,
+                        restore_trace, tracing_enabled)
 from .runtime.dag import DAGScheduler, compile_dag, describe_exchanges
 from .schema import annotate_plan
 from .runtime.exec import MemoryPressureError
@@ -632,22 +634,37 @@ class QueryPipeline:
             q.trace = QueryTrace(q.qid, q.sql)
             if q.task is not None:
                 q.task.trace = q.trace
+        trace = q.trace
+        # the stages' work on this thread (the result cache's wait, a
+        # kernel call outside the DAG) records on the query's trace
+        prev = bind_trace(trace) if trace is not None else None
         t0 = time.perf_counter()
         try:
             for stage in self.stages:
                 if q.finished:
                     break
-                t = time.perf_counter()
-                with make_span(q.trace, f"stage:{stage.name}", "stage"):
+                # one pair of clock reads gives stage_times_ms and the
+                # stage:* span, so the two agree exactly
+                t = clock.perf_counter()
+                cpu = clock.thread_time() if trace is not None else 0.0
+                try:
                     stage.run(q)
+                finally:
+                    if trace is not None:
+                        cpu = clock.thread_time() - cpu
+                    t_end = clock.perf_counter()
+                    if trace is not None:
+                        trace.add_span(f"stage:{stage.name}", "stage", t,
+                                       t_end, cpu_ms=cpu * 1e3)
                 q.stage_times[stage.name] = (
-                    q.stage_times.get(stage.name, 0.0)
-                    + time.perf_counter() - t
-                )
+                    q.stage_times.get(stage.name, 0.0) + t_end - t)
         except Exception:
             if q.cacheable and q.filling:
                 self.session.wh.result_cache.cancel_pending(q.result_key)
             raise
+        finally:
+            if trace is not None:
+                restore_trace(prev)
         q.info["stage_times_ms"] = {
             k: round(v * 1e3, 3) for k, v in q.stage_times.items()
         }

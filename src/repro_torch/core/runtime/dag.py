@@ -379,10 +379,10 @@ class DAGScheduler:
         cancel_token = getattr(ctx, "cancel_token", None)
         excfg = ExchangeConfig(ctx.config,
                                ctx.config.get("exchange.spill_dir"))
-        # observability: resolved once per query; every exchange built below
-        # inherits the query's trace (None = off) and metrics registry
+        # observability: resolved once per query; each vertex thread binds
+        # the query's trace (None = off), every exchange built below gets
+        # the metrics registry
         trace = getattr(ctx, "trace", None)
-        excfg.trace = trace
         excfg.metrics = getattr(ctx, "metrics", None)
         # partitioned SHUFFLE edges: a producer whose consumers all agree on
         # one (num_partitions, keys) spec writes through a ShuffleWriter lane
@@ -463,6 +463,7 @@ class DAGScheduler:
 
         def run_vertex(vid: str) -> None:
             out_ex = exchanges[vid]
+            frame = None
             try:
                 if cancel_token is not None:
                     cancel_token.check()
@@ -484,7 +485,10 @@ class DAGScheduler:
                     mn.source = (adaptive.source_for(vid, mn, src)
                                  if adaptive is not None else src)
                 t0 = clock.perf_counter()
-                frame = open_vertex_frame() if trace is not None else None
+                # the query's trace is this thread's current one (kernel,
+                # probe, exchange-wait and spill spans) until the vertex ends
+                frame = open_vertex_frame(trace) if trace is not None \
+                    else None
                 rows: Optional[int] = None
                 if vid in shareable:
                     key, table = shareable[vid]
@@ -552,7 +556,7 @@ class DAGScheduler:
                     # wake sibling vertices blocked on other exchanges
                     cancel_token.cancel(f"vertex {vid} failed: {exc}")
             finally:
-                close_vertex_frame()
+                close_vertex_frame(frame)
 
         if adaptive is not None:
             adaptive.begin(dag, ctx, exchanges, lane_spec,

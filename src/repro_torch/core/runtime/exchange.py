@@ -26,8 +26,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ...analysis.lockdep import make_condition
-from ..obs import clock
-from ..obs.trace import note_exchange_wait, note_spill_io
+from ..obs.trace import EXCHANGE_WAIT, SPILL_IO, vertex_phase
 from .exec import MemoryPressureError
 from .vector import VectorBatch
 
@@ -60,12 +59,10 @@ class ExchangeConfig:
                                   or config.get("debug.check_batches"))
         self.scratch_dir = scratch_dir
         self._own_scratch = False
-        # observability (PR 10), resolved once per query like check_batches:
-        # ``trace`` is the query's QueryTrace (None = tracing off — every
-        # hot-path site pays one attribute test and allocates nothing),
-        # ``metrics`` the warehouse MetricsRegistry for spill counters.
-        # Both set by the execute stage / DAG scheduler, never from config.
-        self.trace = None
+        # observability, resolved once per query like check_batches: the
+        # warehouse MetricsRegistry for spill counters, set by the DAG
+        # scheduler, never from config (waits and spills are timed as spans
+        # of the vertex thread's trace: obs.trace.vertex_phase)
         self.metrics = None
 
     def make_scratch(self) -> str:
@@ -196,11 +193,7 @@ class Exchange:
                     f"_{self._spill_seq:06d}.npz",
                 )
                 self._spill_seq += 1
-                if self.cfg.trace is not None:
-                    t_io = clock.perf_counter()
-                    _save_chunk(path, batch)
-                    note_spill_io(clock.perf_counter() - t_io)
-                else:
+                with vertex_phase(SPILL_IO):
                     _save_chunk(path, batch)
                 self._slots.append(_DiskSlot(path))
                 self.spilled_rows += n
@@ -252,17 +245,13 @@ class Exchange:
         i = 0
         while True:
             with self._cond:
-                if self.cfg.trace is not None and i >= len(self._slots) \
-                        and not self._closed:
-                    # blocking wait: charge it to the consuming vertex's
-                    # exchange-wait sub-phase (thread-local frame)
-                    t_wait = clock.perf_counter()
-                    while i >= len(self._slots) and not self._closed:
-                        self._cond.wait(0.05)
-                    note_exchange_wait(clock.perf_counter() - t_wait)
-                else:
-                    while i >= len(self._slots) and not self._closed:
-                        self._cond.wait(0.05)
+                if i >= len(self._slots) and not self._closed:
+                    # blocking wait: a span on the consuming vertex's thread,
+                    # charged to its exchange-wait sub-phase (no-op outside
+                    # a traced vertex)
+                    with vertex_phase(EXCHANGE_WAIT):
+                        while i >= len(self._slots) and not self._closed:
+                            self._cond.wait(0.05)
                 if i < len(self._slots):
                     slot = self._slots[i]
                     if slot is None:
@@ -284,11 +273,7 @@ class Exchange:
             if isinstance(slot, _MemSlot):
                 yield slot.batch
             else:
-                if self.cfg.trace is not None:
-                    t_io = clock.perf_counter()
-                    batch = _load_chunk(slot.path)
-                    note_spill_io(clock.perf_counter() - t_io)
-                else:
+                with vertex_phase(SPILL_IO):
                     batch = _load_chunk(slot.path)
                 if not self.retain:
                     try:

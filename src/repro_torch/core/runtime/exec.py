@@ -385,8 +385,11 @@ class _KernelBloomProbe:
         ctx = self._ctx
         if ctx.trace is not None:
             ctx.trace.kernel_dispatch("bloom_probe", ctx.engine)
-        return probe_bloom_filter(self._bf, values, ctx.engine, ctx.device,
-                                  bits=self._bits)
+        # the probe's host work is this span less its kernel:bloom_probe
+        with make_span(ctx.trace, "probe:bloom_probe", "probe",
+                       rows=len(values)):
+            return probe_bloom_filter(self._bf, values, ctx.engine,
+                                      ctx.device, bits=self._bits)
 
 
 class _BuildTable:
@@ -461,17 +464,24 @@ class _BuildTable:
 
     def _lookup(self, uniq: np.ndarray, dictionary,
                 vals: np.ndarray) -> np.ndarray:
-        if len(uniq) == 0:
-            return np.full(len(vals), -1, dtype=np.int64)
-        if dictionary is not None and vals.dtype.kind in "iuf":
-            # the probe values' float32 cast must round-trip too
-            v32 = vals.astype(np.float32)
-            if np.array_equal(v32.astype(vals.dtype), vals):
-                fn = self.ctx.kernel("key_lookup")
-                return np.asarray(fn(dictionary, v32)).astype(np.int64)
-        idx = np.minimum(np.searchsorted(uniq, vals), len(uniq) - 1)
-        found = uniq[idx] == vals
-        return np.where(found, idx, -1).astype(np.int64)
+        # one span a call, its path the kernel's or the host's; the probe's
+        # host work is the span less its kernel:key_lookup
+        with make_span(self.ctx.trace, "probe:key_lookup", "probe",
+                       rows=len(vals)) as span:
+            if len(uniq) == 0:
+                span.note(path="host")
+                return np.full(len(vals), -1, dtype=np.int64)
+            if dictionary is not None and vals.dtype.kind in "iuf":
+                # the probe values' float32 cast must round-trip too
+                v32 = vals.astype(np.float32)
+                if np.array_equal(v32.astype(vals.dtype), vals):
+                    span.note(path="kernel")
+                    fn = self.ctx.kernel("key_lookup")
+                    return np.asarray(fn(dictionary, v32)).astype(np.int64)
+            span.note(path="host")
+            idx = np.minimum(np.searchsorted(uniq, vals), len(uniq) - 1)
+            found = uniq[idx] == vals
+            return np.where(found, idx, -1).astype(np.int64)
 
 
 class Executor:

@@ -18,6 +18,7 @@ from typing import Dict, Optional, Tuple
 from ...analysis.lockdep import make_lock
 from ..metastore import Metastore
 from ..obs.metrics import MetricsRegistry
+from ..obs.trace import current_trace, make_span
 from ..optimizer.result_cache import CacheEntry
 from ..runtime.exchange import batch_nbytes
 from ..runtime.lrfu import LRFUPolicy
@@ -73,7 +74,10 @@ class ResultCacheServer:
             pending = entry.pending
         if pending is not None:
             self._c["pending_waits"].inc()
-            pending.wait(timeout=60)
+            # the waiter's own span (inside its stage:cache_probe), so the
+            # wait is not read as planning
+            with make_span(current_trace(), "cache:pending_wait", "serving"):
+                pending.wait(timeout=60)
             with self._lock:
                 entry = self._entries.get(key)
                 if entry is None or entry.pending is not None:

@@ -78,7 +78,9 @@ def bloom_probe_trip(device, h1, h2, bits, num_hashes: int, num_bits: int):
         raise ValueError("bloom_probe kernel takes uint32 hashes and words")
     (out,) = trip("bloom_probe", device, [h1, h2, bits], [(np.bool_, (n,))],
                   lambda i, o: (i[0], i[1], i[2], num_bits // 32, num_hashes,
-                                num_bits - 1, n, o[0]))
+                                num_bits - 1, n, o[0]),
+                  shape={"n": n, "words": num_bits // 32,
+                         "hashes": num_hashes})
     count_launch("bloom_probe")
     return out
 

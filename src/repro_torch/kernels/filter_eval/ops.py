@@ -104,7 +104,8 @@ def filter_eval_trip(device, columns, ops: tuple, lits: tuple):
         return np.zeros(0, dtype=bool)
     (out,) = trip("filter_eval", device, cols, [(np.bool_, (n,))],
                   lambda i, o: (*_launch_args(i, ops, lits), n, o[0],
-                                vector_head(i, o[0])))
+                                vector_head(i, o[0])),
+                  shape={"n": n, "k": len(cols)})
     count_launch("filter_eval")
     return out
 

@@ -211,7 +211,8 @@ def hash_group_trip(device, codes, values, num_groups: int):
                         lambda i, o: (i[0], i[1], n, num_groups, o[0], o[1],
                                       GROUP_PATHS.index(path),
                                       o[2] if blocks else None, blocks),
-                        scratch_bytes=8 * blocks * num_groups)
+                        scratch_bytes=8 * blocks * num_groups,
+                        shape={"n": n, "g": num_groups})
     _count_group(path, num_groups)
     return sums, counts
 
@@ -227,7 +228,8 @@ def hash_group_minmax_trip(device, codes, values, num_groups: int):
     mins, maxs = trip("hash_group_minmax", device, [codes, values],
                       [(np.float32, (num_groups,))] * 2,
                       lambda i, o: (i[0], i[1], n, num_groups, o[0], o[1],
-                                    int(path == "one_block")))
+                                    int(path == "one_block")),
+                      shape={"n": n, "g": num_groups})
     count_launch("hash_group_minmax")
     count_launch(f"hash_group_minmax.{path}")
     return mins, maxs

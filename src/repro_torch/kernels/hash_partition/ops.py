@@ -78,7 +78,8 @@ def hash_partition_trip(device, cols, num_partitions: int):
     k = _check_kernel(cols, np.float32)
     (out,) = trip("hash_partition", device, list(cols), [(np.int32, (n,))],
                   lambda i, o: ((ctypes.c_void_p * k)(*i), k, n,
-                                int(num_partitions), o[0]))
+                                int(num_partitions), o[0]),
+                  shape={"n": n, "k": k})
     count_launch("hash_partition")
     return out
 

@@ -58,7 +58,8 @@ def key_lookup_trip(device, sorted_vals, probe):
     if g == 0 or n == 0:
         return np.full(n, -1, dtype=np.int32)
     (out,) = trip("key_lookup", device, [sorted_vals, probe],
-                  [(np.int32, (n,))], lambda i, o: (i[0], g, i[1], n, o[0]))
+                  [(np.int32, (n,))], lambda i, o: (i[0], g, i[1], n, o[0]),
+                  shape={"n": n, "g": g})
     count_launch("key_lookup")
     return out
 

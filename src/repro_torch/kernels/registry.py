@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..core.obs.trace import current_trace
 
 VALID_ENGINES = ("auto", "cuda", "pallas", "ref")
 
@@ -62,6 +63,11 @@ _LAUNCH_LOCK = threading.Lock()
 _UPLOADS: Dict[str, int] = {}
 # tensor kernel -> its executor call on the card in one trip (trip())
 _TRIP_CALLS: Dict[Callable, Callable] = {}
+# registered implementation -> its kernel's name (the kernel:<name> span)
+_NAMES: Dict[Callable, str] = {}
+# the argument of a kernel's executor call that holds the morsel (else the
+# first): its rows are the kernel span's ``rows``
+_MORSEL_ARG = {"key_lookup": 1}
 # staging buffers are this many bytes at least, and every array packed into
 # one starts at a multiple of _ALIGN (the kernels' 16-byte vector loads)
 _MIN_STAGING = 1 << 16
@@ -148,6 +154,7 @@ def register(kernel: str, backend: str, fn: Optional[Callable] = None):
 
     def _do(f: Callable) -> Callable:
         _REGISTRY.setdefault(kernel, {})[backend] = f
+        _NAMES[f] = kernel
         return f
 
     return _do(fn) if fn is not None else _do
@@ -223,6 +230,11 @@ class _Lane(threading.local):
     largest call and is reused by its next call, which starts after the
     previous one synchronised."""
 
+    # the shape of the thread's last trip's launch, under the cost model's
+    # keys (n rows, g groups or dictionary keys, k columns, words, hashes):
+    # the traced host_call reads it into its kernel span's arguments
+    shape: Optional[dict] = None
+
     def __init__(self):
         self.device = None
 
@@ -271,7 +283,8 @@ def _run(entry: str, *args) -> None:
 
 
 def trip(kernel: str, device: torch.device, inputs, outs,
-         launch_args: Callable, scratch_bytes: int = 0) -> list:
+         launch_args: Callable, scratch_bytes: int = 0,
+         shape: Optional[dict] = None) -> list:
     """One executor call of ``kernel`` on the card, by its C entry point
     ``<kernel>_trip`` (csrc/common.cuh: trip): each numpy array of
     ``inputs`` goes up through the thread's staging buffers in one copy,
@@ -281,13 +294,17 @@ def trip(kernel: str, device: torch.device, inputs, outs,
     ``<kernel>_launch`` before its stream.  ``scratch_bytes`` more of the
     thread's device staging buffer, after the results and never copied,
     are the kernel's scratch: its pointer follows the results' in
-    ``output_pointers``.  Returns the results as new numpy arrays."""
+    ``output_pointers``.  ``shape`` is the launch's shape under the cost
+    model's keys (``n``, ``g``, ``k``, ``words``, ``hashes``), kept for the
+    call's ``kernel:<name>`` span.  Returns the results as new numpy
+    arrays."""
     arrays = [np.ascontiguousarray(x) for x in inputs
               if isinstance(x, np.ndarray)]
     results = [np.empty(shape, dtype) for dtype, shape in outs]
     starts, in_bytes = _offsets(a.nbytes for a in arrays)
     out_starts, out_bytes = _offsets(r.nbytes for r in results)
     lane = _LANE
+    lane.shape = shape
     lane.ready(device, in_bytes, out_bytes, scratch_bytes)
     plan = [len(arrays)]
     for a, at in zip(arrays, starts):
@@ -338,9 +355,17 @@ def host_call(fn: Callable, device: torch.device) -> Callable:
     array; tensor arguments (build-side state from :func:`upload`) pass as
     they are.  On the card the call is ``fn``'s trip (see the module's
     docstring).  A CUDA device without a usable GPU raises here, so a query
-    under ``engine: cuda`` never runs on the CPU unnoticed."""
+    under ``engine: cuda`` never runs on the CPU unnoticed.
+
+    Where the calling thread works for a traced query
+    (``obs.trace.current_trace``), each call is a ``kernel:<name>`` span
+    (on the card: the whole trip) with the morsel's ``rows`` and, from a
+    trip, the launch's shape; untraced, the call is the plain one."""
     if device.type != "cuda":
-        return lambda *args: _to_host(fn(*_to_device(args, device)))
+        def on_host(*args):
+            return _to_host(fn(*_to_device(args, device)))
+
+        return _traced(on_host, fn)
     call = _TRIP_CALLS.get(fn)
     if call is None:
         raise ValueError(f"{getattr(fn, '__name__', fn)!r} has no one-trip "
@@ -350,7 +375,33 @@ def host_call(fn: Callable, device: torch.device) -> Callable:
         _require_gpu()
         return call(device, *args)
 
-    return on_card
+    return _traced(on_card, fn)
+
+
+def _traced(call: Callable, fn: Callable) -> Callable:
+    """``call`` itself with no traced query on this thread, else ``call``
+    inside a ``kernel:<name>`` span of the thread's trace."""
+    trace = current_trace()
+    if trace is None:
+        return call
+    kernel = _NAMES.get(fn, getattr(fn, "__name__", "kernel"))
+    at = _MORSEL_ARG.get(kernel, 0)
+
+    def traced(*args):
+        morsel = args[at]
+        if isinstance(morsel, (tuple, list)):
+            morsel = morsel[0] if morsel else ()
+        lane = _LANE
+        lane.shape = None
+        with trace.span(f"kernel:{kernel}", "kernel",
+                        rows=len(morsel)) as span:
+            out = call(*args)
+            if lane.shape is not None:
+                span.note(**lane.shape)
+        return out
+
+    traced.__wrapped__ = call
+    return traced
 
 
 def _import_all() -> None:

@@ -147,6 +147,16 @@ class TestLint:
                "    vertex.deps = ['v2']\n")
         assert lint.lint_source(src, "src/repro_torch/core/runtime/dag.py") == []
 
+    def test_rep007_cpu_clocks_fire(self):
+        src = ("import time\n"
+               "def f():\n"
+               "    return time.thread_time(), time.process_time()\n")
+        fs = lint.lint_source(src, "src/repro_torch/core/serving/x.py")
+        assert [f.code for f in fs] == ["REP007", "REP007"]
+        assert "thread_time" in fs[0].message
+        # the obs layer itself is where the sanctioned aliases live
+        assert lint.lint_source(src, "src/repro_torch/core/obs/x.py") == []
+
     def test_suppression_comment(self):
         src = ('def f(config):\n'
                '    return config.get("oops")  # repro-lint: REP001\n')

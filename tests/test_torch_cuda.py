@@ -267,6 +267,42 @@ def test_cuda_host_call_four_threads_equal_plain(cuda):
             assert _same(got, exp), k
 
 
+def test_cuda_kernel_spans_carry_the_launch_shape(cuda):
+    """Untraced, host_call's call is the plain one; on a thread working for
+    a traced query each call is a kernel:<name> span with the morsel's rows
+    and the launch's shape under the cost model's keys, answers unchanged;
+    hash_partition's too, as the shuffle calls it."""
+    from repro_torch.core.obs.trace import (QueryTrace, bind_trace,
+                                            restore_trace)
+    from repro_torch.kernels.hash_partition.ops import hash_partition_ref
+
+    keys = {"key_lookup": {"n", "g"}, "bloom_probe": {"n", "words", "hashes"},
+            "hash_group": {"n", "g"}, "filter_eval": {"n", "k"},
+            "hash_partition": {"n", "k"}}
+    calls = _path_calls(np.random.default_rng(5), cuda, 3)
+    col = np.random.default_rng(6).integers(0, 1000, 3000).astype(np.float32)
+    calls.append(("hash_partition", ((col,), 4),
+                  _np(hash_partition_ref([_t(col)], 4))))
+    plain = registry.host_call(registry.resolve("key_lookup", "cuda"), cuda)
+    assert plain.__name__ == "on_card" and not hasattr(plain, "__wrapped__")
+    trace = QueryTrace("q1")
+    prev = bind_trace(trace)
+    try:
+        for k, args, exp in calls:
+            fn = registry.host_call(registry.resolve(k, "cuda"), cuda)
+            assert _same(fn(*args), exp), k
+    finally:
+        restore_trace(prev)
+    spans = [(name, args) for name, _c, _b, _e, _t, args in trace._spans]
+    assert [name for name, _a in spans] == [f"kernel:{k}"
+                                            for k, _a, _e in calls]
+    for (name, args), (k, call_args, _e) in zip(spans, calls):
+        assert set(args) == keys[k] | {"rows", "cpu_ms"}, name
+        assert args["n"] == args["rows"] > 0
+    assert spans[0][1]["g"] == 2556
+    assert (spans[1][1]["words"], spans[1][1]["hashes"]) == (1024, 6)
+
+
 def test_cuda_host_call_results_are_not_the_staging_buffer(cuda):
     """A result stays as it was after the same thread's next call, which
     reuses the staging buffers."""
